@@ -1,0 +1,93 @@
+"""Shared building blocks, NCHW inside the models.
+
+Every parameter is float32 (flax's param_dtype); a layer casts its input
+and weights to its compute `dtype` when it runs, as a flax layer with
+`dtype=bfloat16` does. BatchNorm is frozen (running statistics, eps 2e-5),
+computes in float32 and returns its compute dtype.
+
+Each conv carries the name of its initializer (`init`), which
+``models/lsfa.py::init_params`` reads to draw weights without JAX.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+BN_EPS = 2e-5
+
+
+def mx_pad(kernel: int, dilate: int = 1) -> int:
+    """MXNet's symmetric pad for an odd kernel, ((k-1)*d+1)//2 per side —
+    torch's `padding=p`, never "same" (which splits an odd total pad
+    unevenly for stride 2)."""
+    return ((kernel - 1) * dilate + 1) // 2
+
+
+class Conv(nn.Conv2d):
+    """Conv2d with MXNet symmetric padding, computing in `dtype`.
+
+    init: "lecun" (flax's default, truncated normal with fan-in variance),
+    "he", "normal01" (N(0, 0.01), the reference's init for new heads),
+    "zeros", or "scale_map" (weight 0, bias 1)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int = 1, stride: int = 1,
+                 dilate: int = 1, bias: bool = True, dtype=torch.float32,
+                 init: str = "lecun", device=None):
+        super().__init__(cin, cout, kernel, stride=stride, padding=mx_pad(kernel, dilate),
+                         dilation=dilate, bias=bias, device=device)
+        self.dtype = dtype
+        self.init = init
+
+    def forward(self, x):
+        d = self.dtype
+        bias = None if self.bias is None else self.bias.to(d)
+        return self._conv_forward(x.to(d), self.weight.to(d), bias)
+
+
+class Deconv2x(nn.ConvTranspose2d):
+    """4x4 stride-2 transposed conv giving exactly 2x the spatial size: a
+    VALID transposed conv yields 2*in + 2, and one border row/col is
+    cropped on each side (the reference's Deconvolution + Crop pair)."""
+
+    def __init__(self, cin: int, cout: int, dtype=torch.float32, device=None):
+        super().__init__(cin, cout, 4, stride=2, bias=True, device=device)
+        self.dtype = dtype
+        self.init = "lecun"
+
+    def forward(self, x):
+        d = self.dtype
+        y = F.conv_transpose2d(x.to(d), self.weight.to(d), self.bias.to(d), stride=2)
+        return y[..., 1:-1, 1:-1]
+
+
+class FrozenBN(nn.Module):
+    """BatchNorm on running statistics; float32 math, output in `dtype`."""
+
+    def __init__(self, features: int, use_scale: bool = True,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(features, device=device)) if use_scale else None
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+        self.register_buffer("running_mean", torch.zeros(features, device=device))
+        self.register_buffer("running_var", torch.ones(features, device=device))
+
+    def forward(self, x):
+        y = F.batch_norm(x.float(), self.running_mean, self.running_var,
+                         self.weight, self.bias, training=False, eps=BN_EPS)
+        return y.to(self.dtype)
+
+
+def avg_pool(x, window: int):
+    return F.avg_pool2d(x, window, window)
+
+
+def max_pool_3x3_s2(x):
+    """MXNet pool(kernel=3, stride=2, pad=1)."""
+    return F.max_pool2d(x, 3, 2, padding=1)
+
+
+def leaky_relu(x, slope: float = 0.1):
+    return F.leaky_relu(x, slope)

@@ -28,3 +28,10 @@ import jax  # noqa: E402
 jax.config.update("jax_platforms", "cpu")
 assert jax.default_backend() == "cpu", jax.devices()
 assert jax.device_count() == 8, jax.devices()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips without one")
+    config.addinivalue_line(
+        "markers", "slow: flagship-size test, deselected by -m 'not slow'")
