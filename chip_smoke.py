@@ -18,7 +18,19 @@ Phases, each printing one line before the last:
      kernel, and that the kernel's mask equals the plain version's on the
      last key frame's real RPN input;
   5. small-input reference: the tiny config in float32 on the card (with
-     the kernel) against the same weights on the CPU (plain version).
+     the kernel) against the same weights on the CPU (plain version);
+  6. train path: the flagship at full width (bf16 compute, float32
+     parameters), random init from a seed, through train_net over 4 seeded
+     synthetic batches at 608x1024 (B = 1, one key pair, 1-10 gt boxes);
+     checks finite metrics on every step, exactly one kernel launch per
+     step, frozen parameters bit-unchanged and trainable ones moved, and
+     the kernel's mask equal to the plain version's on the last step's
+     real RPN input; prints ms per step after the first, peak memory and
+     host syncs after the first step;
+  7. small train step: the tiny config in float32, 2 steps on the card
+     (kernel) and on the CPU (plain version) from the same weights, batches
+     and uniform draws: metrics within 1e-4 relative, parameters within
+     1e-5.
 Then one JSON line for the kernels and, last, the result line. Any failed
 phase exits non-zero before the result line is printed.
 """
@@ -120,6 +132,153 @@ def synth_payloads(rng, n_gops, bucket=BUCKET, content=CONTENT, scale=600 / 576)
         info = np.asarray([ch, cw, scale], np.float32)
         out.append((parts[0], parts[1], mv, res, info))
     return out
+
+
+def spread_heads(model, seed):
+    """Redraw the RPN score and R-FCN heads at std 0.05: at the N(0, 0.01)
+    init their outputs are near-uniform, and float noise between two
+    devices would reorder proposals and OHEM losses."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for conv in (model.rpn_cls_score, model.rfcn_cls, model.rfcn_bbox):
+            conv.weight.copy_(torch.randn(conv.weight.shape, generator=g) * 0.05)
+
+
+def train_phases(dev, nms_cuda, greedy_alive):
+    """Phases 6 and 7. Returns (kernel launches of the flagship train run,
+    max abs error of the kernel's mask against the plain version's)."""
+    import torch
+
+    from lsfa_tpu_torch.config import get_default_config, load_config
+    from lsfa_tpu_torch.data.loader import batch_to_device, synthetic_train_batches
+    from lsfa_tpu_torch.models.lsfa import lsfa_from_config
+    from lsfa_tpu_torch.train.driver import init_model, train_net
+    from lsfa_tpu_torch.train.schedule import frozen_names, make_optimizer
+    from lsfa_tpu_torch.train.train_step import TrainSettings, make_train_step
+
+    # 6. the flagship train step at full width
+    cfg = get_default_config()
+    model = init_model(cfg, rng_seed=0, device=dev)
+    # the input BN's statistics as a trained trunk's: those of the frames'
+    # raw BGR values (uniform u8, mean 127.5, std 73.9); at mean 0, var 1
+    # the random trunk's features reach the hundreds and the losses 1e5
+    with torch.no_grad():
+        for bn in (model.backbone.bn_data, model.small_net_backbone.bn_data):
+            bn.running_mean.fill_(127.5)
+            bn.running_var.fill_(73.9 ** 2)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    batches = synthetic_train_batches(4, BUCKET, seed=3, num_classes=cfg.dataset.NUM_CLASSES,
+                                      max_gt=cfg.tpu.max_gt_boxes, content_hw=CONTENT)
+    steps, seen = [], {}
+    kernel = nms_cuda.greedy_alive_cuda
+
+    def recorded(boxes, valid, thresh, sweeps):
+        """The kernel, keeping its last input and mask (device copies)."""
+        alive, conv = kernel(boxes, valid, thresh, sweeps)
+        seen.update(boxes=boxes.clone(), valid=valid.clone(), thresh=thresh,
+                    sweeps=sweeps, alive=alive.clone())
+        return alive, conv
+
+    def hook(step, metrics):
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        steps.append((metrics, end, nms_cuda.LAUNCHES))
+        if step == 0:                    # the first step initializes cuDNN/cuBLAS
+            torch.cuda.set_sync_debug_mode("warn")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    nms_cuda.greedy_alive_cuda = recorded
+    nms_cuda.LAUNCHES = 0
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            train_net(cfg, batches, max_steps=len(batches), metrics_hook=hook, model=model)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        nms_cuda.greedy_alive_cuda = kernel
+    torch.cuda.synchronize()
+    train_launches = nms_cuda.LAUNCHES
+    peak = torch.cuda.max_memory_allocated(dev)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    check(len(steps) == 4, f"train_net ran {len(steps)} steps, not 4")
+    check([n for _, _, n in steps] == [1, 2, 3, 4],
+          f"kernel launches after each step {[n for _, _, n in steps]}, not one per step")
+    for i, (m, _, _) in enumerate(steps):
+        bad = [k for k, v in m.items() if not bool(torch.isfinite(v))]
+        check(not bad, f"train step {i}: non-finite {bad}")
+    ms = [start.elapsed_time(steps[0][1])] + [
+        a[1].elapsed_time(b[1]) for a, b in zip(steps, steps[1:])]
+    frozen = frozen_names(model)
+    state = model.state_dict()
+    params = dict(model.named_parameters())
+    changed = [k for k in params if k in frozen and not torch.equal(state[k], before[k])]
+    check(not changed, f"frozen parameters moved: {changed[:5]}")
+    # the Nq-net's last bias shifts both softmax logits alike: its gradient
+    # cancels analytically and may round to exactly zero
+    still = [k for k in params if k not in frozen and torch.equal(state[k], before[k])
+             and k != "nq_net.conv3.bias"]
+    check(not still, f"trainable parameters did not move: {still[:5]} ({len(still)})")
+    want = greedy_alive(seen["boxes"], seen["valid"], seen["thresh"], seen["sweeps"])
+    err = float((seen["alive"].int() - want.int()).abs().max())
+    check(torch.equal(seen["alive"], want), "kernel != plain on the last train step's RPN input")
+    args = (seen["boxes"], seen["valid"], seen["thresh"], seen["sweeps"])
+    k_ms, p_ms = cuda_ms(lambda: kernel(*args)), cuda_ms(lambda: greedy_alive(*args))
+    first, last = ({k: round(float(v), 4) for k, v in steps[i][0].items()} for i in (0, -1))
+    print(f"train path: LSFA ResNet-101 bf16 (float32 parameters) at {BUCKET[0]}x{BUCKET[1]}, "
+          f"B=1, 4 steps of train_net; ms per step {[round(x, 2) for x in ms]} (first includes "
+          f"warm-up), after the first {statistics.mean(ms[1:]):.2f} ms/step; peak memory "
+          f"{peak / 2**30:.2f} GiB; nms kernel launches {train_launches} (one per step); host "
+          f"syncs flagged after the first step {syncs}; {len(frozen)} frozen parameters "
+          f"unchanged, {len(params) - len(frozen)} trainable moved; first step {first}; last step "
+          f"{last}")
+    print(f"train path: kernel mask equals plain on the last step's RPN input "
+          f"{tuple(seen['boxes'].shape)}: {int(want.sum())} alive of {int(seen['valid'].sum())} "
+          f"valid; kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us (median of 20)")
+    del model, before, state, params
+
+    # 7. small train step: card (kernel) vs CPU (plain), float32, same draws
+    tiny = load_config(None, overrides={
+        "network": {"num_layer": 18, "DFF_FEAT_DIM": 64, "ANCHOR_SCALES": [1, 2, 4]},
+        "TRAIN": {"RPN_POST_NMS_TOP_N": 64, "BATCH_ROIS_OHEM": 32, "RPN_BATCH_SIZE": 64},
+        "tpu": {"compute_dtype": "float32", "max_gt_boxes": 8}})
+    hw = (64, 112)
+    cpu_model = init_model(tiny, rng_seed=3)
+    spread_heads(cpu_model, 4)
+    gpu_model = lsfa_from_config(tiny, device=dev)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    small = synthetic_train_batches(2, hw, seed=5, batch_images=2, max_gt=8, content_hw=(60, 104))
+    for b in small:
+        b["eq_flag_old"][:] = 0.0
+    settings = TrainSettings.from_config(tiny)
+    rng = np.random.default_rng(6)
+    k = (hw[0] // 16) * (hw[1] // 16) * settings.num_anchors
+    draws = [{n: torch.from_numpy(rng.uniform(size=(2, k)).astype(np.float32))
+              for n in ("rpn_fg", "rpn_bg")} for _ in small]
+    results = []
+    nms_cuda.LAUNCHES = 0
+    for m, d in ((cpu_model, "cpu"), (gpu_model, dev)):
+        opt, sched = make_optimizer(m, tiny.TRAIN.lr, [1000])
+        step = make_train_step(m, settings, opt, sched)
+        mets = [step(batch_to_device(b, d), {n: u.to(d) for n, u in dr.items()})
+                for b, dr in zip(small, draws)]
+        results.append(([{n: float(v) for n, v in x.items()} for x in mets],
+                        {n: p.detach().cpu() for n, p in m.named_parameters()}))
+    check(nms_cuda.LAUNCHES == 2, f"tiny card steps launched the kernel {nms_cuda.LAUNCHES} times")
+    (cpu_m, cpu_p), (gpu_m, gpu_p) = results
+    met_err = max(abs(g[n] - c[n]) / max(abs(c[n]), 1e-12)
+                  for g, c in zip(gpu_m, cpu_m) for n in c)
+    par_err = max(float((gpu_p[n] - cpu_p[n]).abs().max()) for n in cpu_p)
+    check(met_err < 1e-4, f"tiny train metrics card vs CPU differ by {met_err:.2e} relative")
+    check(par_err < 1e-5, f"tiny train parameters card vs CPU differ by {par_err:.2e}")
+    print(f"small train step: tiny LSFA float32, 2 steps of B=2 at {hw[0]}x{hw[1]}, card (kernel, "
+          f"2 launches) vs CPU (plain): metrics max rel err {met_err:.2e}, parameters max abs "
+          f"err {par_err:.2e}; last CPU step {({n: round(v, 4) for n, v in cpu_m[-1].items()})}")
+    return train_launches, err
 
 
 def main():
@@ -269,12 +428,16 @@ def main():
     print(f"small input: tiny LSFA float32, 2 GOPs, card vs CPU: carry max err "
           f"{carry_err:.2e}, valid masks equal, sorted scores max err {score_err:.2e}")
 
+    train_launches, train_err = train_phases(dev, nms_cuda, greedy_alive)
+    max_err = max(max_err, train_err)
+
     k_ms, p_ms = times["rpn (12, 2048)"]
     print(json.dumps({"kernels": [{
         "name": "nms_sweep", "route": "cuda",
         "source": "lsfa_tpu_torch/csrc/nms_sweep.cu",
         "replaces": "lsfa_tpu/ops/pallas_nms.py:97",
-        "launches": launches, "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms}]}))
+        "launches": launches + train_launches, "max_abs_err": max_err, "ms": k_ms,
+        "plain_ms": p_ms, "launches_by_path": {"streaming": launches, "train": train_launches}}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,11 +1,12 @@
 """The LSFA model: R-FCN detection over long/short-term aggregated features.
 
-The counterpart of ``lsfa_tpu.models.lsfa`` for the streaming inference
-path: the key-frame graph (`forward_key`: backbone, dilated 3x3, FlowNet
-warp of the cached key feature and Nq-net fusion) and the non-key graph
-(`forward_cur`: motion-vector warp, R-net residual, small-net fusion),
-each followed by the RPN and R-FCN heads. The 1024-ch feature splits along
-channels into (rpn_feat, rfcn_feat) halves.
+The counterpart of ``lsfa_tpu.models.lsfa``: the key-frame graph
+(`forward_key`: backbone, dilated 3x3, FlowNet warp of the cached key
+feature and Nq-net fusion), the non-key graph (`forward_cur`:
+motion-vector warp, R-net residual, small-net fusion), and the training
+graph (`forward_train`: both, with ChooseFeat selects), each followed by
+the RPN and R-FCN heads. The 1024-ch feature splits along channels into
+(rpn_feat, rfcn_feat) halves.
 
 The public methods take and return NHWC tensors with the JAX package's
 channel orders (RPN logits [bg A | fg A], flow (dx, dy)); inside, the
@@ -226,6 +227,50 @@ class LSFA(nn.Module):
             _nchw(feat_key), _nchw(motion_vector), _nchw(res_diff),
             _nchw(self.preprocess(small_img)))
         return self._heads(feat)
+
+    def forward_train(self, data, data_ref, data_ref_old, eq_flag, eq_flag_old,
+                      motion_vector, res_diff):
+        """Training forward to the head maps. data, data_ref, data_ref_old:
+        raw BGR frames (B, H, W, 3); eq_flag (B,) > 0 where the current
+        frame is the key frame, eq_flag_old (B,) > 0 where the old
+        reference is the reference; motion_vector (B, fh, fw, 2) (dx, dy);
+        res_diff (B, fh, fw, 3).
+
+        Returns NHWC rpn_cls [bg A | fg A] logits and rpn_bbox deltas as
+        raw float32 head outputs, the R-FCN maps in the compute dtype, and
+        the key and selected features."""
+        if ((self.add_rnet and self.rnet.bn is not None)
+                or (self.add_small_net and self.small_fuse.cur_feat_bn is not None)):
+            raise NotImplementedError(
+                "train-mode BatchNorm (res_diff_bn, small_net_bn_before_fuse) is not ported yet")
+        b = data.shape[0]
+        x_cur = _nchw(self.preprocess(data))
+        x_ref = _nchw(self.preprocess(data_ref))
+        if not self.add_lt_aggregation:
+            key_feat = self.conv_feat(x_ref)
+        else:
+            x_old = _nchw(self.preprocess(data_ref_old))
+            feats = self.conv_feat(torch.cat([x_ref, x_old], dim=0))
+            feat_ref, feat_old = feats[:b], feats[b:]
+            prop = self.long_term_aggregate(feat_ref, feat_old, x_ref, x_old)
+            # ChooseFeat: the fresh feature when cur == key or old == ref
+            use_fresh = ((eq_flag > 0) | (eq_flag_old > 0)).reshape(b, 1, 1, 1)
+            key_feat = torch.where(use_fresh, feat_ref, prop)
+        small = self.small_fuse.downscale(x_cur) if self.add_small_net else None
+        cur_feat = self.short_term_propagate(key_feat, _nchw(motion_vector),
+                                             _nchw(res_diff), small)
+        # key frames train the key path directly
+        sel = torch.where((eq_flag > 0).reshape(b, 1, 1, 1), key_feat, cur_feat)
+        half = self.feat_dim // 2
+        rpn_feat, rfcn_feat = sel[:, :half], sel[:, half:]
+        return {
+            "rpn_cls": _nhwc(self.rpn_cls_score(rpn_feat).float()),
+            "rpn_bbox": _nhwc(self.rpn_bbox_pred(rpn_feat).float()),
+            "rfcn_cls_map": _nhwc(self.rfcn_cls(rfcn_feat)),
+            "rfcn_bbox_map": _nhwc(self.rfcn_bbox(rfcn_feat)),
+            "key_feat": _nhwc(key_feat),
+            "sel_feat": _nhwc(sel),
+        }
 
 
 def lsfa_from_config(cfg, device=None) -> LSFA:

@@ -24,6 +24,20 @@ def box_area(boxes):
     return w * h
 
 
+def bbox_transform(ex_rois, gt_rois, eps: float = 1e-14):
+    """Regression targets [dx, dy, dw, dh] (..., 4) taking ex_rois to
+    gt_rois; the center offsets divide by (width + eps)."""
+    ew, eh, ecx, ecy = box_wh_ctr(ex_rois)
+    gw, gh, gcx, gcy = box_wh_ctr(gt_rois)
+    return torch.stack([(gcx - ecx) / (ew + eps), (gcy - ecy) / (eh + eps),
+                        torch.log(gw / ew), torch.log(gh / eh)], dim=-1)
+
+
+def iou_transform(ex_rois, gt_rois):
+    """The IoU-loss regression target: the gt box itself."""
+    return gt_rois
+
+
 def bbox_pred(boxes, deltas):
     """Apply center/log-size deltas. boxes (..., N, 4); deltas (..., N, 4*K)
     -> (..., N, 4*K)."""
