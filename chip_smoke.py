@@ -6,17 +6,22 @@
 Phases, each printing one line before the last:
   1. environment: torch/CUDA versions, the card's name and power limit;
   2. build: nvcc compiles the NMS fixpoint kernel from the checkout;
-  3. kernel vs plain: the kernel's alive masks equal the plain version's
-     bit for bit on the RPN shape (12, 2048), the per-class shape
-     (330, 300), a deep suppression chain, the odd cap 1, a cut valid
-     mask and N = 300; median times of both at the two main-path shapes;
+  3. kernel vs plain: the kernel's alive masks and converged flags equal
+     the plain version's bit for bit on the four streaming shapes (1, 2048)
+     t=0.7, (30, 300) t=0.3, (11, 2048) t=0.7, (330, 300) t=0.3, the RPN
+     stand-in (12, 2048), suppression chains at B = 1, the odd cap 1, a
+     cut valid mask, ragged N, N = 1, the two-phase N = 2049 and 8192,
+     and knife-edge pairs whose float32 IoU lies within 2 ulps of t;
+     checks that N <= 2048 allocates no scratch (torch.cuda memory
+     statistics); median times per call of kernel and plain version, the
+     bound and the share of the bound at the timed shapes;
   4. main path: the flagship LSFA (ResNet-101 with DCN, FlowNet-S, Nq-net,
      R-net, small net) at full width, random weights from a seed, bf16,
      through StreamingDetector over 3 GOPs (36 frames) of seeded I420
      payloads at the 608x1024 bucket; checks detection shapes and
      finiteness, the float32 carry, that the main path launched the
-     kernel, and that the kernel's mask equals the plain version's on the
-     last key frame's real RPN input;
+     kernel 4 times per GOP, and that the kernel's mask equals the plain
+     version's on the last key frame's real RPN input;
   5. small-input reference: the tiny config in float32 on the card (with
      the kernel) against the same weights on the CPU (plain version);
   6. train path: the flagship at full width (bf16 compute, float32
@@ -30,7 +35,11 @@ Phases, each printing one line before the last:
   7. small train step: the tiny config in float32, 2 steps on the card
      (kernel) and on the CPU (plain version) from the same weights, batches
      and uniform draws: metrics within 1e-4 relative, parameters within
-     1e-5.
+     1e-5;
+  8. profiled: torch.profiler shows that each phase 3 case's call runs one
+     kernel for N <= 2048 and two above, and gives the kernel's device time
+     at the timed shapes (run last: a profiled window slows later host
+     launches).
 Then one JSON line for the kernels and, last, the result line. Any failed
 phase exits non-zero before the result line is printed.
 """
@@ -88,25 +97,80 @@ def sorted_boxes(rng, n):
     return np.stack([x1, y1, x1 + w, y1 + h], axis=1).astype(np.float32)
 
 
-def kernel_cases(rng):
-    """(name, boxes (B, N, 4), valid (B, N), thresh, sweeps)."""
-    chain_x = np.arange(128, dtype=np.float32) * 6.0
-    chain = np.stack([chain_x, np.zeros(128, np.float32), chain_x + 20.0,
-                      np.full(128, 20.0, np.float32)], axis=1)[None]
+def chain_boxes(n):
+    """Box i suppresses box i + 1 only at thresh 0.5: a chain of n."""
+    x = np.arange(n, dtype=np.float32) * 6.0
+    return np.stack([x, np.zeros(n, np.float32), x + 20.0, np.full(n, 20.0, np.float32)],
+                    axis=1)[None]
+
+
+def kernel_cases(rng, knife_edge_boxes):
+    """(name, boxes (B, N, 4), valid (B, N), thresh, sweeps, timed). The
+    first two draw the inputs of the earlier slices' timings."""
+    def stack(b, n):
+        return np.stack([sorted_boxes(rng, n) for _ in range(b)])
+
     cut = np.ones((4, 512), bool)
     cut[:, 100:] = False
     return [
-        ("rpn (12, 2048)", np.stack([sorted_boxes(rng, 2048) for _ in range(12)]),
-         rng.uniform(size=(12, 2048)) < 0.95, 0.7, 31),
-        ("per-class (330, 300)", np.stack([sorted_boxes(rng, 300) for _ in range(330)]),
-         rng.uniform(size=(330, 300)) < 0.8, 0.3, 31),
-        ("chain n=128 cap n", chain, np.ones((1, 128), bool), 0.5, 128),
-        ("odd cap 1", np.stack([sorted_boxes(rng, 256) for _ in range(4)]),
-         np.ones((4, 256), bool), 0.6, 1),
-        ("valid cut at 100", np.stack([sorted_boxes(rng, 512) for _ in range(4)]), cut, 0.5, 16),
-        ("N=300 ragged", np.stack([sorted_boxes(rng, 300) for _ in range(7)]),
-         np.ones((7, 300), bool), 0.5, 31),
+        ("rpn (12, 2048)", stack(12, 2048), rng.uniform(size=(12, 2048)) < 0.95, 0.7, 31, True),
+        ("per-class (330, 300)", stack(330, 300), rng.uniform(size=(330, 300)) < 0.8, 0.3, 31,
+         True),
+        ("chain n=128 cap n", chain_boxes(128), np.ones((1, 128), bool), 0.5, 128, False),
+        ("odd cap 1", stack(4, 256), np.ones((4, 256), bool), 0.6, 1, False),
+        ("valid cut at 100", stack(4, 512), cut, 0.5, 16, False),
+        ("N=300 ragged", stack(7, 300), np.ones((7, 300), bool), 0.5, 31, False),
+        ("stream RPN key (1, 2048)", stack(1, 2048), rng.uniform(size=(1, 2048)) < 0.95, 0.7, 31,
+         True),
+        ("stream per-class key (30, 300)", stack(30, 300), rng.uniform(size=(30, 300)) < 0.8, 0.3,
+         31, True),
+        ("stream RPN non-key (11, 2048)", stack(11, 2048), rng.uniform(size=(11, 2048)) < 0.95,
+         0.7, 31, True),
+        ("chain B=1 n=2048 cap 31", chain_boxes(2048), np.ones((1, 2048), bool), 0.5, 31, False),
+        ("N=1", stack(3, 1), np.ones((3, 1), bool), 0.7, 31, False),
+        ("N=2049 two-phase", stack(2, 2049), np.ones((2, 2049), bool), 0.7, 31, False),
+        ("N=8192 two-phase", stack(1, 8192), rng.uniform(size=(1, 8192)) < 0.9, 0.7, 31, False),
+        ("knife edge t=0.7 (2, 2048)", knife_edge_boxes(rng, 2, 2048, 0.7),
+         np.ones((2, 2048), bool), 0.7, 31, False),
+        ("knife edge t=0.3 (30, 300)", knife_edge_boxes(rng, 30, 300, 0.3),
+         np.ones((30, 300), bool), 0.3, 31, False),
+        ("knife edge t=0.5 (1, 2048)", knife_edge_boxes(rng, 1, 2048, 0.5),
+         np.ones((1, 2048), bool), 0.5, 31, False),
+        ("knife edge t=0.6 (2, 2049)", knife_edge_boxes(rng, 2, 2049, 0.6),
+         np.ones((2, 2049), bool), 0.6, 31, False),
     ]
+
+
+# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+FLOPS_PER_PAIR = 16     # two extents 8, intersection 3, union and clamp 3, divide 1, compare 1
+
+
+def nms_bound_ms(b, n):
+    """The least time of the fixpoint on an H100: one IoU test per pair of
+    the strict upper triangle at FLOPS_PER_PAIR float32 operations, against
+    boxes and valid read once and alive and converged written once.
+    Returns (ms, "operations" or "bytes")."""
+    ops = FLOPS_PER_PAIR * b * n * (n - 1) / 2
+    moved = b * n * 16 + b * n + b * n + b
+    t_ops, t_bytes = ops / PEAK_F32, moved / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+
+
+def device_kernels(fn, reps=1):
+    """Names and mean durations (us) of the device kernels that `reps`
+    calls of fn() ran, from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [e.name for e in events], sum(e.time_range.elapsed_us() for e in events) / reps
 
 
 def synth_payloads(rng, n_gops, bucket=BUCKET, content=CONTENT, scale=600 / 576):
@@ -247,7 +311,7 @@ def train_phases(dev, nms_cuda, greedy_alive):
         "TRAIN": {"RPN_POST_NMS_TOP_N": 64, "BATCH_ROIS_OHEM": 32, "RPN_BATCH_SIZE": 64},
         "tpu": {"compute_dtype": "float32", "max_gt_boxes": 8}})
     hw = (64, 112)
-    cpu_model = init_model(tiny, rng_seed=3)
+    cpu_model = init_model(tiny, rng_seed=3, device="cpu")
     spread_heads(cpu_model, 4)
     gpu_model = lsfa_from_config(tiny, device=dev)
     gpu_model.load_state_dict(cpu_model.state_dict())
@@ -318,8 +382,8 @@ def main():
     # 3. kernel vs plain, bit for bit
     rng = np.random.default_rng(0)
     max_err = 0.0
-    times = {}
-    for name, boxes, valid, thresh, sweeps in kernel_cases(rng):
+    shapes, checked = [], []
+    for name, boxes, valid, thresh, sweeps, timed in kernel_cases(rng, nms_cuda.knife_edge_boxes):
         b = torch.from_numpy(boxes).to(dev)
         v = torch.from_numpy(valid).to(dev)
         got, conv = nms_cuda.greedy_alive_cuda(b, v, thresh, sweeps)
@@ -329,12 +393,30 @@ def main():
         max_err = max(max_err, err)
         check(torch.equal(got, want), f"kernel mask != plain mask on {name}")
         check(torch.equal(conv, want_conv), f"kernel converged != plain on {name}")
-        line = f"kernel vs plain: {name}: masks equal ({int(got.sum())} alive)"
-        if name.startswith(("rpn", "per-class")):
+        bsz, n = valid.shape
+        csize = nms_cuda.cluster_size(bsz, n, dev)
+        checked.append((name, b, v, thresh, sweeps, timed))
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        nms_cuda.greedy_alive_cuda(b, v, thresh, sweeps)
+        extra = torch.cuda.max_memory_allocated(dev) - before
+        if n <= nms_cuda.FUSED_MAX_N:
+            check(extra <= 2 * 512 + bsz * n, f"{name}: the fused path allocated {extra} bytes")
+        line = (f"kernel vs plain: {name} t={thresh} sweeps={sweeps}: masks and converged equal "
+                f"({int(got.sum())} alive, {int(conv.sum())}/{bsz} converged); cluster {csize}, "
+                f"{extra} bytes allocated")
+        if timed:
             k_ms = cuda_ms(lambda: nms_cuda.greedy_alive_cuda(b, v, thresh, sweeps))
             p_ms = cuda_ms(lambda: greedy_alive(b, v, thresh, sweeps))
-            times[name] = (k_ms, p_ms)
-            line += f", kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us (median of 20)"
+            bound_ms, bound_by = nms_bound_ms(bsz, n)
+            shapes.append({"shape": [bsz, n], "thresh": thresh, "us": k_ms * 1e3,
+                           "plain_us": p_ms * 1e3, "bound_us": bound_ms * 1e3,
+                           "bound_by": bound_by, "share_of_bound": bound_ms / k_ms,
+                           "cluster": csize})
+            line += (f"; kernel {k_ms * 1e3:.1f} us per call (median of 20, wrapper included), "
+                     f"plain {p_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us ({bound_by}), "
+                     f"share {bound_ms / k_ms:.3f}")
         print(line)
 
     # 4. the main path at full width
@@ -363,7 +445,8 @@ def main():
             syncs += sum("synchroniz" in str(w.message) for w in caught)
         outs.append(out)
     launches = nms_cuda.LAUNCHES
-    check(launches > 0, "the main path never launched the NMS kernel")
+    check(launches == 4 * len(payloads),
+          f"the main path launched the NMS kernel {launches} times, not 4 per GOP")
     for kd, kv, cd, cv in outs:
         check(tuple(kd.shape) == (1, 1, 300, 6) and tuple(cd.shape) == (1, GOP - 1, 300, 6),
               f"detection shapes {tuple(kd.shape)}, {tuple(cd.shape)}")
@@ -405,7 +488,7 @@ def main():
         "network": {"num_layer": 18, "DFF_FEAT_DIM": 64, "ANCHOR_SCALES": [1, 2, 4]},
         "TEST": {"RPN_PRE_NMS_TOP_N": 256, "RPN_POST_NMS_TOP_N": 64, "max_per_image": 20},
         "tpu": {"compute_dtype": "float32", "nms_tier": 0}})
-    cpu_model = lsfa_from_config(tiny)
+    cpu_model = lsfa_from_config(tiny, device="cpu")
     init_params(cpu_model, torch.Generator().manual_seed(3))
     with torch.no_grad():
         cpu_model.rfcn_cls.weight.normal_(0.0, 0.05, generator=torch.Generator().manual_seed(4))
@@ -431,13 +514,33 @@ def main():
     train_launches, train_err = train_phases(dev, nms_cuda, greedy_alive)
     max_err = max(max_err, train_err)
 
-    k_ms, p_ms = times["rpn (12, 2048)"]
+    # 8. launches and device time by torch.profiler, last: after a profiled
+    # window the host's launches stay slower, which would bias phases 3-7
+    timed = iter(shapes)
+    for name, b, v, thresh, sweeps, is_timed in checked:
+        names, _ = device_kernels(lambda: nms_cuda.greedy_alive_cuda(b, v, thresh, sweeps))
+        check(len(names) == (1 if v.shape[1] <= nms_cuda.FUSED_MAX_N else 2),
+              f"{name}: one call ran the device kernels {names}")
+        line = f"profiled: {name}: {len(names)} kernel launch(es) per call"
+        if is_timed:
+            entry = next(timed)
+            _, dev_us = device_kernels(lambda: nms_cuda.greedy_alive_cuda(b, v, thresh, sweeps), 20)
+            entry["device_us"] = dev_us
+            entry["device_share_of_bound"] = entry["bound_us"] / dev_us
+            line += (f", {dev_us:.1f} us on the device (mean of 20), "
+                     f"{entry['device_share_of_bound']:.3f} of the bound")
+        print(line)
+
+    rpn = next(s for s in shapes if s["shape"] == [12, 2048])
     print(json.dumps({"kernels": [{
         "name": "nms_sweep", "route": "cuda",
         "source": "lsfa_tpu_torch/csrc/nms_sweep.cu",
         "replaces": "lsfa_tpu/ops/pallas_nms.py:97",
-        "launches": launches + train_launches, "max_abs_err": max_err, "ms": k_ms,
-        "plain_ms": p_ms, "launches_by_path": {"streaming": launches, "train": train_launches}}]}))
+        "launches": launches + train_launches, "max_abs_err": max_err,
+        "ms": rpn["us"] / 1e3, "plain_ms": rpn["plain_us"] / 1e3,
+        "bound_ms": rpn["bound_us"] / 1e3, "bound_by": rpn["bound_by"], "library_ms": None,
+        "launches_by_path": {"streaming": launches, "train": train_launches},
+        "shapes": shapes}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

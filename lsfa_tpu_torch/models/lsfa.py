@@ -273,9 +273,21 @@ class LSFA(nn.Module):
         }
 
 
+def resolve_device(device=None) -> torch.device:
+    """`device`, or the card when it is None. Without a card None raises:
+    the CPU is used only when the caller asks for it."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card is available: pass device='cpu' to build on the CPU")
+    return torch.device("cuda")
+
+
 def lsfa_from_config(cfg, device=None) -> LSFA:
-    """Build an LSFA module from a config tree (weights uninitialized: call
-    `init_params` or load a converted state dict)."""
+    """Build an LSFA module from a config tree on `device` (the card when
+    None; see `resolve_device`). Weights are uninitialized: call
+    `init_params` or load a converted state dict."""
+    device = resolve_device(device)
     n = cfg.network
     return LSFA(
         num_classes=cfg.dataset.NUM_CLASSES,

@@ -10,9 +10,11 @@ applications (default min(N, 31), odd: an unconverged odd iterate is a
 subset of the greedy keeps), then compact the alive ranks into `max_out`
 slots with a cumsum scatter.
 
-The fixpoint of a CUDA tensor runs in the kernel of ``ops/nms_cuda.py``,
-whose exit test stays on the device; `greedy_alive` below is the plain
-version, which CPU tensors take and against which the kernel is checked.
+The fixpoint of a CUDA tensor runs in the kernel of ``ops/nms_cuda.py``
+(one launch for N <= 2048, exit test on the device, the IoU compare
+decided exactly without dividing); `greedy_alive` below is the plain
+version, which CPU tensors take and against which the kernel is checked
+bit for bit.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ from lsfa_tpu_torch.ops import nms_cuda
 
 def suppression_matrix(boxes, iou_thresh: float):
     """(B, N, N) bool: sup[b, i, j] = (i < j) & (IoU(i, j) > iou_thresh),
-    with IoU = inter / max(union, 1e-10) in the kernel's operation order."""
+    with IoU = inter / max(union, 1e-10); the kernel computes inter and
+    union in this operation order."""
     x1, y1, x2, y2 = boxes.float().unbind(-1)
     area = (x2 - x1 + 1.0) * (y2 - y1 + 1.0)
     iw = (torch.minimum(x2[:, :, None], x2[:, None, :])

@@ -16,14 +16,15 @@ import time
 import torch
 
 from lsfa_tpu_torch.data.loader import batch_to_device
-from lsfa_tpu_torch.models.lsfa import init_params, lsfa_from_config
+from lsfa_tpu_torch.models.lsfa import init_params, lsfa_from_config, resolve_device
 from lsfa_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint, seed_small_net
 from lsfa_tpu_torch.train.schedule import make_optimizer
 from lsfa_tpu_torch.train.train_step import TrainSettings, draw_uniforms, make_train_step
 
 
 def init_model(cfg, rng_seed: int = 0, device=None, logger=None):
-    """The LSFA module of `cfg` on `device`, weights drawn from a generator
+    """The LSFA module of `cfg` on `device` (the card when None; raises
+    without one unless device="cpu"), weights drawn from a generator
     seeded with rng_seed on that device, small-net trunk seeded from the
     backbone. Pretrained files (network.pretrained, pretrained_flow,
     pretrained_detector) are not read: warm starts from MXNet .params and
@@ -36,8 +37,9 @@ def init_model(cfg, rng_seed: int = 0, device=None, logger=None):
         name = str(cfg.network.get(key, "") or "")
         if name and logger is not None:
             logger.warning(f"network.{key}={name!r} is not loaded: warm starts are not ported")
+    device = resolve_device(device)
     model = lsfa_from_config(cfg, device=device)
-    init_params(model, torch.Generator(device=device or "cpu").manual_seed(rng_seed))
+    init_params(model, torch.Generator(device=device).manual_seed(rng_seed))
     model.load_state_dict(seed_small_net(model.state_dict()))
     return model
 
@@ -48,7 +50,8 @@ def train_net(cfg, batches, ckpt_dir: str | None = None, logger=None,
     """Train on `batches` (a sized iterable of collated host batches, one
     epoch) from cfg.TRAIN.begin_epoch to end_epoch. Returns the model.
 
-    The model is `model` when given, else `init_model(cfg, seed, device)`.
+    The model is `model` when given, else `init_model(cfg, seed, device)`,
+    which builds on the card when `device` is None.
     The step's uniform draws come from a generator on the device seeded
     with `seed`; its state, the step count, optimizer and scheduler are
     checkpointed to <ckpt_dir>/<epoch>.pt after each epoch and at

@@ -14,6 +14,7 @@ from lsfa_tpu.ops.nms import _greedy_alive, nms_fixed as jax_nms_fixed
 from lsfa_tpu.ops.pallas_nms import greedy_alive_pallas
 from lsfa_tpu_torch.ops.boxes import pairwise_iou
 from lsfa_tpu_torch.ops.nms import greedy_alive, nms_fixed, suppression_matrix
+from lsfa_tpu_torch.ops.nms_cuda import division_free_threshold
 from tests.ref_impl import ref_nms
 from tests.test_pallas_nms import make_sorted
 
@@ -139,3 +140,80 @@ def test_nms_fixed_equals_jax(case):
     got = torch_nms(boxes, scores, valid, thresh, max_out, presorted)
     for name, g, w in zip(("keep_idx", "keep_valid", "converged"), got, want):
         np.testing.assert_array_equal(g, w, err_msg=name)
+
+
+THRESHOLDS = [0.3, 0.5, 0.6, 0.7, 0.0, -0.25]
+
+
+def _round32(v, up):
+    """float64 values rounded to float32 upward (up) or downward."""
+    r = v.astype(np.float32)
+    off = r.astype(np.float64) < v if up else r.astype(np.float64) > v
+    step = np.float32(np.inf) if up else np.float32(-np.inf)
+    return np.where(off, np.nextafter(r, step), r)
+
+
+def kernel_iou_over(inter, union, thresh, exact_only=False):
+    """The kernel's division-free decision of fl(inter / max(union, 1e-10))
+    > t, mirrored in numpy: the float32 filter with directed-rounding
+    products, then the exact float64 test between them."""
+    t, t_up, mid, tie_up = division_free_threshold(thresh)
+    u = np.maximum(union, np.float32(1e-10)).astype(np.float64)
+    x = inter.astype(np.float64)
+    p = mid * u                                    # exact: 25 + 24 bits
+    exact = (x > p) | ((x == p) & tie_up)
+    if exact_only:
+        return exact
+    over = x > _round32(t_up * u, up=True)         # products exact: 24 + 24 bits
+    amb = ~over & (x >= _round32(t * u, up=False))
+    return np.where(amb, exact, over)
+
+
+def boundary_pairs(thresh, rng):
+    """float32 (inter, union) pairs on and around the rounding boundary
+    m * u of the threshold, at the clamp, at zero, and at random."""
+    _, _, mid, _ = division_free_threshold(thresh)
+    u = np.concatenate([
+        rng.uniform(1, 1e5, 4000), 2.0 ** np.arange(-20, 30),            # powers of two
+        rng.uniform(1e-3, 10, 1000)]).astype(np.float32)
+    near = np.abs((mid * u.astype(np.float64)).astype(np.float32))
+    k = np.arange(-4, 5, dtype=np.int32)
+    inter = (near[:, None].view(np.int32) + k).view(np.float32)          # +-4 ulps
+    inter = np.where(inter < 0, np.float32(0), inter) if thresh <= 0 else inter
+    unions = np.broadcast_to(u[:, None], inter.shape)
+    n = 1_000_000
+    rand_u = rng.uniform(0, 1e5, n).astype(np.float32)
+    rand_i = (rand_u * rng.uniform(0, 1, n)).astype(np.float32)
+    clamp_u = np.array([0.0, 1e-12, 1e-10, -5.0, 9.9e-11], np.float32)
+    clamp_i = np.array([0.0, 1e-11, 1e-10, 0.0, 7e-11], np.float32)
+    zero_u = rng.uniform(1, 1e4, 100).astype(np.float32)
+    return (np.concatenate([inter.ravel(), rand_i, clamp_i, np.zeros(100, np.float32)]),
+            np.concatenate([unions.ravel(), rand_u, clamp_u, zero_u]))
+
+
+@pytest.mark.parametrize("thresh", THRESHOLDS)
+def test_division_free_iou_test_equals_division(thresh):
+    """The kernel's test without division (filter and exact fallback, and
+    the exact test alone) equals torch's float32 division and compare on
+    pairs within 4 ulps of the boundary, clamped unions, zero
+    intersections and 10^6 random pairs."""
+    inter, union = boundary_pairs(thresh, np.random.default_rng(5))
+    want = (torch.from_numpy(inter) / torch.from_numpy(union).clamp(min=1e-10)) > thresh
+    np.testing.assert_array_equal(kernel_iou_over(inter, union, thresh), want.numpy())
+    np.testing.assert_array_equal(kernel_iou_over(inter, union, thresh, exact_only=True),
+                                  want.numpy())
+    # the boundary cases sit on both sides of a non-negative threshold
+    q = want.numpy()[:9 * 5050]
+    assert q.any() and (thresh < 0 or not q.all())
+
+
+@pytest.mark.parametrize("thresh", THRESHOLDS)
+def test_division_free_threshold_constants(thresh):
+    """mid lies halfway between t and t_up, and tie_up is how float32
+    rounding takes mid itself (half to even). No float32 quotient can hit
+    mid exactly (it has 25 significant bits), so the kernel never takes
+    the tie branch on real inputs; it keeps the test exact all the same."""
+    t, t_up, mid, tie_up = division_free_threshold(thresh)
+    assert np.float32(t) == np.float32(thresh) and t_up == np.nextafter(np.float32(t), np.inf)
+    assert t < mid < t_up and mid - t == t_up - mid
+    assert float(np.float32(mid)) == (t_up if tie_up else t)

@@ -59,7 +59,7 @@ def models():
     v["params"]["rfcn_cls"]["kernel"] = (
         np.random.default_rng(2).normal(0, 0.05, k.shape).astype(np.float32))
     cfg = load_config(CONFIG, overrides=OVERRIDES)
-    tm = lsfa_from_config(cfg)
+    tm = lsfa_from_config(cfg, device="cpu")
     tm.load_state_dict(flax_to_torch(v), strict=True)
     return jcfg, jm, v, cfg, tm.eval()
 
@@ -140,7 +140,7 @@ def test_state_lt_off_and_init_params():
     frame a stream start; init_params draws the flax initializers'
     statistics from a seeded generator."""
     cfg = load_config(CONFIG, overrides=OVERRIDES)
-    tm = lsfa_from_config(cfg)
+    tm = lsfa_from_config(cfg, device="cpu")
     init_params(tm, torch.Generator().manual_seed(0))
     sd = tm.state_dict()
     lecun_bound = 2 * (1 / 147) ** 0.5 / 0.87962566103423978      # fan-in 7*7*3
@@ -186,7 +186,7 @@ def test_flagship_conversion_resnet101():
     shapes = jax.eval_shape(init)
     rng = np.random.default_rng(0)
     v = jax.tree.map(lambda s: rng.standard_normal(s.shape, np.float32), dict(shapes))
-    tm = lsfa_from_config(load_config(None))
+    tm = lsfa_from_config(load_config(None), device="cpu")
     sd = flax_to_torch(v)
     tm.load_state_dict(sd, strict=True)
     k = v["params"]["backbone"]["stage4_unit3"]["conv2"]["kernel"]          # DCN, HWIO

@@ -43,6 +43,7 @@ from lsfa_tpu_torch.models.lsfa import init_params, lsfa_from_config
 from lsfa_tpu_torch.ops.boxes import bbox_transform, iou_transform
 from lsfa_tpu_torch.train import checkpoint, losses, metrics
 from lsfa_tpu_torch.train.anchor_assign import assign_anchors
+from lsfa_tpu_torch.train.driver import init_model
 from lsfa_tpu_torch.train.ohem import ohem_select
 from lsfa_tpu_torch.train.proposal_target import proposal_target, sample_rois_fixed
 from lsfa_tpu_torch.train.schedule import frozen_names, make_optimizer, warmup_multifactor
@@ -299,7 +300,7 @@ def tiny():
     the port's seeded init, its flax variables, and the JAX module."""
     overrides = {"network": {"add_dcn": True}, "dataset": {"NUM_CLASSES": 5}}
     jm = jax_lsfa_from_config(jax_load_config(CONFIG, overrides=overrides))
-    tm = lsfa_from_config(load_config(CONFIG, overrides=overrides))
+    tm = lsfa_from_config(load_config(CONFIG, overrides=overrides), device="cpu")
     init_params(tm, torch.Generator().manual_seed(0))
     v = perturb(torch_to_flax(tm.state_dict(), flax_shapes(jm)), 3)
     tm.load_state_dict(flax_to_torch(v), strict=True)
@@ -350,7 +351,7 @@ def test_sgd_steps_match_optax(tiny):
     want = flax_to_torch({"params": jax.tree.map(np.asarray, params)})
 
     model = lsfa_from_config(load_config(CONFIG, overrides={
-        "network": {"add_dcn": True}, "dataset": {"NUM_CLASSES": 5}}))
+        "network": {"add_dcn": True}, "dataset": {"NUM_CLASSES": 5}}), device="cpu")
     model.load_state_dict(tm.state_dict())
     opt, sched = make_optimizer(model, 0.01, [1], lr_factor=0.5)
     for g in grads:
@@ -375,7 +376,7 @@ def test_forward_train_matches_jax(tiny, lt):
         jm = jax_lsfa_from_config(jax_load_config(CONFIG, overrides=ov))
         keep = {k: x for k, x in v["params"].items() if k not in ("flownet", "nq_net")}
         v = {"params": keep, "batch_stats": v["batch_stats"]}
-        tm = lsfa_from_config(load_config(CONFIG, overrides=ov))
+        tm = lsfa_from_config(load_config(CONFIG, overrides=ov), device="cpu")
         tm.load_state_dict(flax_to_torch(v), strict=True)
     rng = np.random.default_rng(8)
     samples = [synthetic_sample(rng, (60, 90), 5, 2, eq, eq_old)
@@ -394,7 +395,7 @@ def test_forward_train_matches_jax(tiny, lt):
 
 def test_forward_train_refuses_train_mode_bn():
     for ov in ({"res_diff_bn": True}, {"small_net_bn_before_fuse": True}):
-        tm = lsfa_from_config(load_config(CONFIG, overrides={"network": ov}))
+        tm = lsfa_from_config(load_config(CONFIG, overrides={"network": ov}), device="cpu")
         d = torch.zeros(1, H, W, 3)
         with pytest.raises(NotImplementedError):
             tm.forward_train(d, d, d, torch.zeros(1), torch.zeros(1),
@@ -463,3 +464,16 @@ def test_collate_matches_jax():
     assert [float(b["eq_flag"][0]) for b in batches] == [1.0, 0.0, 0.0, 0.0]
     assert all(b["data"].dtype == np.uint8 and b["motion_vector"].dtype == np.float32
                and 1 <= b["gt_valid"].sum() <= 10 for b in batches)
+
+
+def test_constructors_default_to_the_card():
+    """lsfa_from_config and init_model build on the card when no device is
+    given; without a card they raise instead of carrying on on the CPU."""
+    cfg = load_config(CONFIG)
+    if not torch.cuda.is_available():
+        for build in (lsfa_from_config, init_model):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                build(cfg)
+        return
+    for model in (lsfa_from_config(cfg), init_model(cfg)):
+        assert {p.device.type for p in model.parameters()} == {"cuda"}

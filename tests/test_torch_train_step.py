@@ -101,7 +101,7 @@ def stepped():
     jcfg = jax_load_config(CONFIG, overrides=OVERRIDES)
     cfg = load_config(CONFIG, overrides=OVERRIDES)
     jm = jax_lsfa_from_config(jcfg)
-    tm = lsfa_from_config(cfg)
+    tm = lsfa_from_config(cfg, device="cpu")
     init_params(tm, torch.Generator().manual_seed(3))
     v = perturb(torch_to_flax(tm.state_dict(), flax_shapes(jm)), 1)
     # spread the head outputs, so that float noise reorders no proposal
@@ -224,7 +224,7 @@ def test_train_net_resume_equals_straight_run(tmp_path):
     def hook(log):
         return lambda step, m: log.append((step, float(m["total_loss"])))
 
-    model = init_model(cfg, 0)
+    model = init_model(cfg, 0, device="cpu")
     ckpt = str(tmp_path / "ckpt")
     train_net(cfg, batches, ckpt_dir=ckpt, max_steps=2, model=copy.deepcopy(model),
               metrics_hook=hook(resumed_m), seed=9)
@@ -232,8 +232,8 @@ def test_train_net_resume_equals_straight_run(tmp_path):
                          metrics_hook=hook(straight_m), seed=9)
     assert sorted(os.listdir(ckpt)) == ["1.pt"]
     cfg.TRAIN.RESUME = True                    # into an uninitialized model
-    resumed = train_net(cfg, batches, ckpt_dir=ckpt, max_steps=1, model=lsfa_from_config(cfg),
-                        metrics_hook=hook(resumed_m), seed=0)
+    resumed = train_net(cfg, batches, ckpt_dir=ckpt, max_steps=1,
+                        model=lsfa_from_config(cfg, device="cpu"), metrics_hook=hook(resumed_m), seed=0)
     assert resumed_m == straight_m and [s for s, _ in straight_m] == [0, 1, 2]
     for (name, a), b in zip(straight.state_dict().items(), resumed.state_dict().values()):
         assert torch.equal(a, b), name
