@@ -38,8 +38,9 @@ Phases, each printing one line before the last:
      1e-5;
   8. profiled: torch.profiler shows that each phase 3 case's call runs one
      kernel for N <= 2048 and two above, and gives the kernel's device time
-     at the timed shapes (run last: a profiled window slows later host
-     launches).
+     at the timed shapes, also with num_sweeps = 0 (the build and one test
+     sweep), which splits build from sweeps (run last: a profiled window
+     slows later host launches).
 Then one JSON line for the kernels and, last, the result line. Any failed
 phase exits non-zero before the result line is printed.
 """
@@ -104,7 +105,56 @@ def chain_boxes(n):
                     axis=1)[None]
 
 
-def kernel_cases(rng, knife_edge_boxes):
+def float32_iou(a, b):
+    """IoU of float32 boxes a and b (..., 4) in the plain version's
+    operation order, with numpy's float32 arithmetic."""
+    one = np.float32(1.0)
+    iw = np.minimum(a[..., 2], b[..., 2]) - np.maximum(a[..., 0], b[..., 0]) + one
+    ih = np.minimum(a[..., 3], b[..., 3]) - np.maximum(a[..., 1], b[..., 1]) + one
+    inter = np.maximum(iw, np.float32(0)) * np.maximum(ih, np.float32(0))
+    area_a = (a[..., 2] - a[..., 0] + one) * (a[..., 3] - a[..., 1] + one)
+    area_b = (b[..., 2] - b[..., 0] + one) * (b[..., 3] - b[..., 1] + one)
+    union = area_a + area_b - inter
+    return inter / np.maximum(union, np.float32(1e-10))
+
+
+def knife_edge_boxes(rng, batch: int, n: int, iou_thresh: float, ulps: int = 2):
+    """(batch, n, 4) float32 rank-ordered boxes made of pairs (2k, 2k + 1)
+    whose float32 IoU lies within `ulps` float32 steps of float32(thresh),
+    on both sides of it and on it: integer pairs whose IoU rounds to t
+    exactly, then b's right edge moved by a few float32 steps. The x
+    coordinates stay below 64, where a step moves the IoU by about one of
+    its own steps; pair k sits in the band y in [64 k, 64 k + 64), so no
+    two pairs overlap (integer y keeps the IoU exact under that shift)."""
+    t = np.float32(iou_thresh)
+    want = batch * (n // 2)
+    found, count = [], 0
+    while count < want:
+        m = 1 << 16
+        xy = rng.integers(0, 8, (m, 2)).astype(np.float32)
+        wh = rng.integers(8, 48, (m, 2)).astype(np.float32)
+        a = np.concatenate([xy, xy + wh], axis=1)
+        bb = a + rng.integers(-8, 9, (m, 4)).astype(np.float32)
+        bb[:, 2:] = np.maximum(bb[:, 2:], bb[:, :2])
+        on = float32_iou(a, bb) == t
+        a, bb = a[on], bb[on]
+        k = rng.integers(-6, 7, len(a)).astype(np.int32)
+        bb[:, 2] = (bb[:, 2].view(np.int32) + k).view(np.float32)
+        keep = np.abs(float32_iou(a, bb).view(np.int32) - t.view(np.int32)) <= ulps
+        found.append(np.stack([a[keep], bb[keep]], axis=1))
+        count += int(keep.sum())
+    pairs = np.concatenate(found)[:want].reshape(batch, n // 2, 2, 4)
+    band = np.float32(64.0) * np.arange(n // 2, dtype=np.float32)
+    pairs[..., 1] += band[:, None]
+    pairs[..., 3] += band[:, None]
+    out = np.zeros((batch, n, 4), np.float32)
+    out[:, :2 * (n // 2)] = pairs.reshape(batch, -1, 4)
+    if n % 2:                            # a lone last box, in a band of its own
+        out[:, -1] = [0.0, 64.0 * (n // 2), 16.0, 64.0 * (n // 2) + 16.0]
+    return out
+
+
+def kernel_cases(rng):
     """(name, boxes (B, N, 4), valid (B, N), thresh, sweeps, timed). The
     first two draw the inputs of the earlier slices' timings."""
     def stack(b, n):
@@ -383,7 +433,7 @@ def main():
     rng = np.random.default_rng(0)
     max_err = 0.0
     shapes, checked = [], []
-    for name, boxes, valid, thresh, sweeps, timed in kernel_cases(rng, nms_cuda.knife_edge_boxes):
+    for name, boxes, valid, thresh, sweeps, timed in kernel_cases(rng):
         b = torch.from_numpy(boxes).to(dev)
         v = torch.from_numpy(valid).to(dev)
         got, conv = nms_cuda.greedy_alive_cuda(b, v, thresh, sweeps)
@@ -525,10 +575,13 @@ def main():
         if is_timed:
             entry = next(timed)
             _, dev_us = device_kernels(lambda: nms_cuda.greedy_alive_cuda(b, v, thresh, sweeps), 20)
-            entry["device_us"] = dev_us
-            entry["device_share_of_bound"] = entry["bound_us"] / dev_us
+            # num_sweeps = 0: the build and the one sweep that tests the exit
+            _, build_us = device_kernels(lambda: nms_cuda.greedy_alive_cuda(b, v, thresh, 0), 20)
+            entry.update(device_us=dev_us, device_us_sweeps0=build_us,
+                         device_share_of_bound=entry["bound_us"] / dev_us)
             line += (f", {dev_us:.1f} us on the device (mean of 20), "
-                     f"{entry['device_share_of_bound']:.3f} of the bound")
+                     f"{entry['device_share_of_bound']:.3f} of the bound; with num_sweeps=0 "
+                     f"(build and one test sweep) {build_us:.1f} us")
         print(line)
 
     rpn = next(s for s in shapes if s["shape"] == [12, 2048])

@@ -197,14 +197,10 @@ template <TileKind kKind, bool kProper>
 __device__ __forceinline__ void build_tile_t(const float4* rbox, const float* rarea, int i0,
                                              const float4* cbox, const float* carea, int j0,
                                              int ncols, const Thresh& th, u64* out) {
-#ifdef NMS_EXACT_TEST
-  tile_pass<kKind, true, false>(rbox, rarea, i0, cbox, carea, j0, ncols, th, out);
-#else
   const bool undecided =
       tile_pass<kKind, false, kProper>(rbox, rarea, i0, cbox, carea, j0, ncols, th, out);
   if (__any_sync(kFull, undecided))
     tile_pass<kKind, true, false>(rbox, rarea, i0, cbox, carea, j0, ncols, th, out);
-#endif
 }
 
 template <TileKind kKind>
@@ -612,6 +608,15 @@ int pick_cluster(int batch, int words, const DeviceInfo& d) {
   return best;
 }
 
+// Makes `device` current, so that device_info sets the kernel's
+// attributes and queries occupancy on the card it caches them for.
+cudaError_t use_device(int device) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  return err;
+}
+
 }  // namespace
 
 // The cluster size the fused path picks for (batch, n), 0 for the
@@ -619,8 +624,9 @@ int pick_cluster(int batch, int words, const DeviceInfo& d) {
 extern "C" int nms_sweep_cluster_size(int batch, int n, int device) {
   const int words = (n + kBits - 1) / kBits;
   if (words > kFusedMaxWords) return 0;
+  cudaError_t err = use_device(device);
   DeviceInfo d;
-  const cudaError_t err = device_info(device, &d);
+  if (err == cudaSuccess) err = device_info(device, &d);
   if (err != cudaSuccess) return -(int)err;
   return pick_cluster(batch, words, d);
 }
@@ -629,15 +635,12 @@ extern "C" int nms_sweep_cluster_size(int batch, int n, int device) {
 // u8; alive (batch, n) u8; converged (batch,) u8; the threshold as
 // (t, t+, m, tie_up) from ops/nms_cuda.py::division_free_threshold. sup
 // is a (batch, ceil(n/64), n) u64 scratch for n > 2048 and unused (may be
-// null) otherwise. cluster is the fused path's cluster size, 0 to pick
-// it (pick_cluster). Requires 0 < n <= 8192, 0 < batch <= 65535.
+// null) otherwise. Requires 0 < n <= 8192, 0 < batch <= 65535.
 extern "C" int nms_sweep_launch(const void* boxes, const void* valid, int batch, int n,
                                 float t_lo, float t_hi, double mid, int tie_up,
-                                int num_sweeps, int cluster, void* sup, void* alive,
-                                void* converged, int device, void* stream) {
-  int current = -1;
-  cudaError_t err = cudaGetDevice(&current);
-  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+                                int num_sweeps, void* sup, void* alive, void* converged,
+                                int device, void* stream) {
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Thresh th{t_lo, t_hi, mid, tie_up};
@@ -648,26 +651,12 @@ extern "C" int nms_sweep_launch(const void* boxes, const void* valid, int batch,
   uint8_t* cv = static_cast<uint8_t*>(converged);
 
   if (words <= kFusedMaxWords) {
-    // the last call's cluster and plan, kept per host thread: callers
-    // repeat their shapes
-    thread_local struct {
-      int device = -1, batch = -1, words = -1, cluster = -1, csize = 0, most = 0;
-      Plan plan;
-    } last;
-    if (last.device != device || last.batch != batch || last.words != words ||
-        last.cluster != cluster) {
-      DeviceInfo d;
-      err = device_info(device, &d);
-      if (err != cudaSuccess) return (int)err;
-      last.csize = cluster > 0 ? cluster : pick_cluster(batch, words, d);
-      last.plan = make_plan(words, last.csize, &last.most);
-      last.device = device;
-      last.batch = batch;
-      last.words = words;
-      last.cluster = cluster;
-    }
-    const int csize = last.csize, most = last.most;
-    const Plan plan = last.plan;
+    DeviceInfo d;
+    err = device_info(device, &d);
+    if (err != cudaSuccess) return (int)err;
+    const int csize = pick_cluster(batch, words, d);
+    int most = 0;
+    const Plan plan = make_plan(words, csize, &most);
     cudaLaunchConfig_t cfg = {};
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;

@@ -76,45 +76,34 @@ def _nvcc() -> str:
     return found
 
 
-def compile_library(source: Path = SOURCE, flags=tuple(NVCC_FLAGS)) -> Path:
-    """Compile `source` with `flags` into BUILD_DIR, once per hash of both;
-    returns the library's path."""
-    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()
-    lib_path = BUILD_DIR / f"lib{source.stem}_{digest[:16]}.so"
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(exist_ok=True)
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(source)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source.name}:\n{proc.stderr}")
-        os.replace(tmp, lib_path)
-    return lib_path
-
-
-def load_library(path: Path) -> ctypes.CDLL:
-    """Load a build of nms_sweep.cu and declare its C functions."""
-    lib = ctypes.CDLL(str(path))
-    fn = lib.nms_sweep_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_float, ctypes.c_double, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.nms_sweep_cluster_size.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
-    lib.nms_sweep_cluster_size.restype = ctypes.c_int
-    return lib
-
-
 def build() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
     global _lib, BUILD_SECONDS
     if _lib is not None:
         return _lib
     t0 = time.perf_counter()
-    _lib = load_library(compile_library())
+    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    lib_path = BUILD_DIR / f"libnms_sweep_{digest[:16]}.so"
+    if not lib_path.exists():
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{proc.stderr}")
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    fn = lib.nms_sweep_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_float, ctypes.c_float, ctypes.c_double, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.nms_sweep_cluster_size.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.nms_sweep_cluster_size.restype = ctypes.c_int
+    _lib = lib
     BUILD_SECONDS = time.perf_counter() - t0
-    return _lib
+    return lib
 
 
 def cluster_size(batch: int, n: int, device=None) -> int:
@@ -128,53 +117,12 @@ def cluster_size(batch: int, n: int, device=None) -> int:
     return got
 
 
-def launch(lib, boxes, valid, iou_thresh: float, num_sweeps: int, cluster: int = 0):
-    """One call of `lib`'s nms_sweep_launch on checked inputs; returns
-    (alive, converged), two views of one allocation. `cluster` sets the
-    fused path's cluster size (0: the kernel picks it). Used by
-    greedy_alive_cuda, and by measurements that load another build of the
-    source or set the cluster size."""
-    bsz, n = valid.shape
-    index = boxes.get_device()
-    out = torch.empty((bsz * n + bsz,), dtype=torch.bool, device=boxes.device)
-    sup = 0
-    if n > FUSED_MAX_N:
-        sup = torch.empty((bsz, (n + 63) // 64, n), dtype=torch.int64,
-                          device=boxes.device).data_ptr()
-    t, t_up, mid, tie_up = division_free_threshold(iou_thresh)
-    ptr = out.data_ptr()
-    err = lib.nms_sweep_launch(boxes.data_ptr(), valid.data_ptr(), bsz, n, t, t_up, mid,
-                               tie_up, num_sweeps, cluster, sup, ptr, ptr + bsz * n, index,
-                               torch._C._cuda_getCurrentRawStream(index))
-    if err != 0:
-        raise RuntimeError(f"nms_sweep launch failed with CUDA error {err}")
-    return out[:bsz * n].view(bsz, n), out[bsz * n:]
-
-
 def greedy_alive_cuda(boxes, valid, iou_thresh: float, num_sweeps: int):
     """The NMS fixpoint on the card. boxes (B, N, 4) float32 contiguous,
     rank-sorted; valid (B, N) bool contiguous, on the same CUDA device.
     Returns (alive (B, N) bool, converged (B,) bool), enqueued on the
     current stream without synchronizing."""
     global LAUNCHES
-    if not (boxes.is_cuda and valid.get_device() == boxes.get_device()
-            and boxes.dtype == torch.float32 and valid.dtype == torch.bool
-            and boxes.dim() == 3 and boxes.size(2) == 4 and valid.dim() == 2
-            and valid.size(0) == boxes.size(0) and valid.size(1) == boxes.size(1)
-            and boxes.is_contiguous() and valid.is_contiguous() and boxes.data_ptr() % 16 == 0
-            and boxes.size(1) <= MAX_N and boxes.size(0) <= MAX_BATCH):
-        _reject(boxes, valid)
-    if boxes.numel() == 0:
-        bsz, n = valid.shape
-        return (torch.empty((bsz, n), dtype=torch.bool, device=boxes.device),
-                torch.ones((bsz,), dtype=torch.bool, device=boxes.device))
-    got = launch(_lib or build(), boxes, valid, iou_thresh, int(num_sweeps))
-    LAUNCHES += 1
-    return got
-
-
-def _reject(boxes, valid):
-    """Raise the error that says what greedy_alive_cuda cannot take."""
     if not boxes.is_cuda or valid.device != boxes.device:
         raise ValueError(f"boxes and valid must share one CUDA device, got "
                          f"{boxes.device} and {valid.device}")
@@ -185,53 +133,27 @@ def _reject(boxes, valid):
                          f"{tuple(boxes.shape)} and {tuple(valid.shape)}")
     if not (boxes.is_contiguous() and valid.is_contiguous()) or boxes.data_ptr() % 16:
         raise ValueError("boxes and valid must be contiguous, boxes 16-byte aligned")
-    raise ValueError(f"(B, N) = {tuple(valid.shape)} exceeds ({MAX_BATCH}, {MAX_N})")
-
-
-def float32_iou(a, b):
-    """IoU of float32 boxes a and b (..., 4) in the plain version's
-    operation order, with numpy's float32 arithmetic."""
-    one = np.float32(1.0)
-    iw = np.minimum(a[..., 2], b[..., 2]) - np.maximum(a[..., 0], b[..., 0]) + one
-    ih = np.minimum(a[..., 3], b[..., 3]) - np.maximum(a[..., 1], b[..., 1]) + one
-    inter = np.maximum(iw, np.float32(0)) * np.maximum(ih, np.float32(0))
-    area_a = (a[..., 2] - a[..., 0] + one) * (a[..., 3] - a[..., 1] + one)
-    area_b = (b[..., 2] - b[..., 0] + one) * (b[..., 3] - b[..., 1] + one)
-    union = area_a + area_b - inter
-    return inter / np.maximum(union, np.float32(1e-10))
-
-
-def knife_edge_boxes(rng, batch: int, n: int, iou_thresh: float, ulps: int = 2):
-    """(batch, n, 4) float32 rank-ordered boxes made of pairs (2k, 2k + 1)
-    whose float32 IoU lies within `ulps` float32 steps of float32(thresh),
-    on both sides of it and on it: integer pairs whose IoU rounds to t
-    exactly, then b's right edge moved by a few float32 steps. The x
-    coordinates stay below 64, where a step moves the IoU by about one of
-    its own steps; pair k sits in the band y in [64 k, 64 k + 64), so no
-    two pairs overlap (integer y keeps the IoU exact under that shift)."""
-    t = np.float32(iou_thresh)
-    want = batch * (n // 2)
-    found, count = [], 0
-    while count < want:
-        m = 1 << 16
-        xy = rng.integers(0, 8, (m, 2)).astype(np.float32)
-        wh = rng.integers(8, 48, (m, 2)).astype(np.float32)
-        a = np.concatenate([xy, xy + wh], axis=1)
-        bb = a + rng.integers(-8, 9, (m, 4)).astype(np.float32)
-        bb[:, 2:] = np.maximum(bb[:, 2:], bb[:, :2])
-        on = float32_iou(a, bb) == t
-        a, bb = a[on], bb[on]
-        k = rng.integers(-6, 7, len(a)).astype(np.int32)
-        bb[:, 2] = (bb[:, 2].view(np.int32) + k).view(np.float32)
-        keep = np.abs(float32_iou(a, bb).view(np.int32) - t.view(np.int32)) <= ulps
-        found.append(np.stack([a[keep], bb[keep]], axis=1))
-        count += int(keep.sum())
-    pairs = np.concatenate(found)[:want].reshape(batch, n // 2, 2, 4)
-    band = np.float32(64.0) * np.arange(n // 2, dtype=np.float32)
-    pairs[..., 1] += band[:, None]
-    pairs[..., 3] += band[:, None]
-    out = np.zeros((batch, n, 4), np.float32)
-    out[:, :2 * (n // 2)] = pairs.reshape(batch, -1, 4)
-    if n % 2:                            # a lone last box, in a band of its own
-        out[:, -1] = [0.0, 64.0 * (n // 2), 16.0, 64.0 * (n // 2) + 16.0]
-    return out
+    bsz, n = valid.shape
+    if n > MAX_N or bsz > MAX_BATCH:
+        raise ValueError(f"(B, N) = ({bsz}, {n}) exceeds ({MAX_BATCH}, {MAX_N})")
+    dev = boxes.device
+    if bsz == 0 or n == 0:
+        return (torch.empty((bsz, n), dtype=torch.bool, device=dev),
+                torch.ones((bsz,), dtype=torch.bool, device=dev))
+    lib = _lib or build()
+    # alive and converged: two views of one allocation
+    out = torch.empty((bsz * n + bsz,), dtype=torch.bool, device=dev)
+    scratch = None
+    if n > FUSED_MAX_N:
+        scratch = torch.empty((bsz, (n + 63) // 64, n), dtype=torch.int64, device=dev)
+    t, t_up, mid, tie_up = division_free_threshold(iou_thresh)
+    index = boxes.get_device()
+    ptr = out.data_ptr()
+    sup = 0 if scratch is None else scratch.data_ptr()
+    err = lib.nms_sweep_launch(boxes.data_ptr(), valid.data_ptr(), bsz, n, t, t_up, mid,
+                               tie_up, int(num_sweeps), sup, ptr, ptr + bsz * n, index,
+                               torch._C._cuda_getCurrentRawStream(index))
+    if err != 0:
+        raise RuntimeError(f"nms_sweep launch failed with CUDA error {err}")
+    LAUNCHES += 1
+    return out[:bsz * n].view(bsz, n), out[bsz * n:]

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import knife_edge_boxes
 from lsfa_tpu_torch.ops import nms_cuda
 from lsfa_tpu_torch.ops.nms import greedy_alive, nms_fixed
 
@@ -64,7 +65,7 @@ def cases():
         out[f"stream_{b}x{n}"] = (sorted_boxes(rng, b, n, 1000.0 if n > 300 else 400.0),
                                   rng.uniform(size=(b, n)) < 0.9, t, 31)
     for t, (b, n) in zip((0.7, 0.3, 0.5, 0.6), ((2, 2048), (11, 300), (1, 1000), (3, 2049))):
-        out[f"knife_{t}_{b}x{n}"] = (nms_cuda.knife_edge_boxes(rng, b, n, t),
+        out[f"knife_{t}_{b}x{n}"] = (knife_edge_boxes(rng, b, n, t),
                                      np.ones((b, n), bool), t, 31)
     assert sorted(out) == sorted(CASES)
     return out
