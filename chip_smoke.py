@@ -35,9 +35,34 @@ Phases, each printing one line before the last:
   7. small train step: the tiny config in float32, 2 steps on the card
      (kernel) and on the CPU (plain version) from the same weights, batches
      and uniform draws: metrics within 1e-4 relative, parameters within
-     1e-5;
-  8. profiled: torch.profiler shows that each phase 3 case's call runs one
-     kernel for N <= 2048 and two above, and gives the kernel's device time
+     1e-5, running statistics within 1e-4 of max(1, |x|);
+  8. R-FCN serving: the single-frame R-FCN of configs/rfcn_resnet101_vid.yaml
+     (ResNet-101 without DCN, feat 1024, bf16) at full width, random weights
+     from a seed, through RFCNDetector.detect over 12 seeded BGR u8 frames
+     at 608x1024; checks (300, 6) finite detections with some valid, two
+     kernel launches per frame (RPN and per-class NMS), no host sync flagged
+     after the first frame, and the kernel's mask equal to the plain
+     version's on the last frame's real RPN input; prints ms per frame and
+     frames/s after the first;
+  9. R-FCN training: the same R-FCN through train_net over 4 seeded
+     synthetic batches (the checks and prints of phase 6);
+ 10. train-mode BatchNorm: the flagship with res_diff_bn and
+     small_net_bn_before_fuse, 2 steps of train_net (the checks of phase 6,
+     and the three BatchNorms' running statistics moved with their scale
+     and bias unchanged), then the tiny config with both variants card vs
+     CPU as in phase 7, running statistics included;
+ 11. per frame: the tiny float32 LSFA on the card gives through
+     StreamingDetector.process_frame, frame by frame over 2 GOPs, the
+     valid masks and (within 1e-4) sorted scores of
+     process_prepared_window;
+ 12. scoring: collect_detections and vid_eval over phase 8's detections
+     against seeded gt boxes (a finite mAP in [0, 1]), and the gt planted
+     as detections (mAP 1.0);
+ 13. profiled: the R-FCN frame and train step, host enqueue against wall
+     time, then their device time, kernels per call and top kernels under
+     torch.profiler; torch.profiler shows that each phase 3 case's call
+     runs one kernel for N <= 2048 and two above, and gives the kernel's
+     device time
      at the timed shapes, also with num_sweeps = 0 (the build and one test
      sweep), which splits build from sweeps (run last: a profiled window
      slows later host launches).
@@ -59,6 +84,25 @@ REPO = Path(__file__).resolve().parent
 GOP = 12
 BUCKET = (608, 1024)
 CONTENT = (600, 1000)                 # resized frame inside the bucket
+# configs/rfcn_resnet101_vid.yaml as overrides (the card's machine has no
+# yaml); a CPU test holds the two equal
+RFCN_OVERRIDES = {
+    "output_path": "./output/rfcn_tpu/imagenet_vid",
+    "symbol": "rfcn_resnet101",
+    "SCALES": [[600, 1000]],
+    "network": {"pretrained": "resnet-101", "num_layer": 101, "add_dcn": False,
+                "add_small_net": False, "add_Nq_net": False},
+    "dataset": {"dataset": "ImageNetVID", "dataset_path": "./data/ILSVRC2015",
+                "image_set": "DET_train_30classes+VID_train_15frames",
+                "test_image_set": "VID_val_frames", "NUM_CLASSES": 31},
+    "TRAIN": {"lr": 0.00025, "lr_step": "1.333", "end_epoch": 2, "ENABLE_OHEM": True,
+              "BATCH_IMAGES": 1, "BATCH_ROIS": -1, "BATCH_ROIS_OHEM": 128,
+              "RPN_POST_NMS_TOP_N": 300, "RPN_MIN_SIZE": 0},
+    "TEST": {"NMS": 0.3, "RPN_MIN_SIZE": 0, "test_epoch": 2},
+    "tpu": {"compute_dtype": "bfloat16", "default_bucket": [608, 1024],
+            "image_buckets": [[608, 1024], [1024, 608], [608, 960]]},
+}
+BN_VARIANTS = {"res_diff_bn": True, "small_net_bn_before_fuse": True}
 
 
 def fail(msg):
@@ -208,9 +252,11 @@ def nms_bound_ms(b, n):
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
-def device_kernels(fn, reps=1):
-    """Names and mean durations (us) of the device kernels that `reps`
-    calls of fn() ran, from torch.profiler."""
+def device_kernels(fn, reps=1, top=0):
+    """Names of the device kernels that `reps` calls of fn() ran and their
+    device time per call (us), from torch.profiler; with top > 0 also the
+    `top` kernel names (cut to 60 characters) that took the most device
+    time, each with its share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -220,7 +266,15 @@ def device_kernels(fn, reps=1):
             fn()
         torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return [e.name for e in events], sum(e.time_range.elapsed_us() for e in events) / reps
+    total = sum(e.time_range.elapsed_us() for e in events)
+    if not top:
+        return [e.name for e in events], total / reps
+    by_name = {}
+    for e in events:
+        name = e.name.removeprefix("void ")[:60]
+        by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return [e.name for e in events], total / reps, [(n, us / total) for n, us in ranked]
 
 
 def synth_payloads(rng, n_gops, bucket=BUCKET, content=CONTENT, scale=600 / 576):
@@ -260,30 +314,37 @@ def spread_heads(model, seed):
             conv.weight.copy_(torch.randn(conv.weight.shape, generator=g) * 0.05)
 
 
-def train_phases(dev, nms_cuda, greedy_alive):
-    """Phases 6 and 7. Returns (kernel launches of the flagship train run,
-    max abs error of the kernel's mask against the plain version's)."""
+def calibrate_input_bn(model):
+    """Set every input BN's statistics (bn_data) to a trained trunk's: those
+    of the frames' raw BGR values (uniform u8, mean 127.5, std 73.9); at
+    mean 0, var 1 a random trunk's features reach the hundreds and the
+    losses 1e5."""
     import torch
 
-    from lsfa_tpu_torch.config import get_default_config, load_config
-    from lsfa_tpu_torch.data.loader import batch_to_device, synthetic_train_batches
-    from lsfa_tpu_torch.models.lsfa import lsfa_from_config
-    from lsfa_tpu_torch.train.driver import init_model, train_net
-    from lsfa_tpu_torch.train.schedule import frozen_names, make_optimizer
-    from lsfa_tpu_torch.train.train_step import TrainSettings, make_train_step
-
-    # 6. the flagship train step at full width
-    cfg = get_default_config()
-    model = init_model(cfg, rng_seed=0, device=dev)
-    # the input BN's statistics as a trained trunk's: those of the frames'
-    # raw BGR values (uniform u8, mean 127.5, std 73.9); at mean 0, var 1
-    # the random trunk's features reach the hundreds and the losses 1e5
     with torch.no_grad():
-        for bn in (model.backbone.bn_data, model.small_net_backbone.bn_data):
-            bn.running_mean.fill_(127.5)
-            bn.running_var.fill_(73.9 ** 2)
+        for name, bn in model.named_modules():
+            if name.endswith("bn_data"):
+                bn.running_mean.fill_(127.5)
+                bn.running_var.fill_(73.9 ** 2)
+
+
+def train_run(cfg, model, n_steps, nms_cuda, greedy_alive, still_ok=()):
+    """train_net over n_steps seeded synthetic batches at the bucket
+    (B = 1), the kernel recorded. Checks finite metrics on every step, one
+    kernel launch per step, frozen parameters bit-unchanged, trainable
+    ones (but `still_ok`) moved, and the kernel's mask equal to the plain
+    version's on the last step's real RPN input. Returns a dict of what it
+    measured."""
+    import torch
+
+    from lsfa_tpu_torch.data.loader import synthetic_train_batches
+    from lsfa_tpu_torch.train.driver import train_net
+    from lsfa_tpu_torch.train.schedule import frozen_names
+
+    dev = next(model.parameters()).device
     before = {k: v.clone() for k, v in model.state_dict().items()}
-    batches = synthetic_train_batches(4, BUCKET, seed=3, num_classes=cfg.dataset.NUM_CLASSES,
+    batches = synthetic_train_batches(n_steps, BUCKET, seed=3,
+                                      num_classes=cfg.dataset.NUM_CLASSES,
                                       max_gt=cfg.tpu.max_gt_boxes, content_hw=CONTENT)
     steps, seen = [], {}
     kernel = nms_cuda.greedy_alive_cuda
@@ -316,11 +377,9 @@ def train_phases(dev, nms_cuda, greedy_alive):
         torch.cuda.set_sync_debug_mode("default")
         nms_cuda.greedy_alive_cuda = kernel
     torch.cuda.synchronize()
-    train_launches = nms_cuda.LAUNCHES
-    peak = torch.cuda.max_memory_allocated(dev)
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
-    check(len(steps) == 4, f"train_net ran {len(steps)} steps, not 4")
-    check([n for _, _, n in steps] == [1, 2, 3, 4],
+    launches = nms_cuda.LAUNCHES
+    check(len(steps) == n_steps, f"train_net ran {len(steps)} steps, not {n_steps}")
+    check([n for _, _, n in steps] == list(range(1, n_steps + 1)),
           f"kernel launches after each step {[n for _, _, n in steps]}, not one per step")
     for i, (m, _, _) in enumerate(steps):
         bad = [k for k, v in m.items() if not bool(torch.isfinite(v))]
@@ -332,32 +391,58 @@ def train_phases(dev, nms_cuda, greedy_alive):
     params = dict(model.named_parameters())
     changed = [k for k in params if k in frozen and not torch.equal(state[k], before[k])]
     check(not changed, f"frozen parameters moved: {changed[:5]}")
-    # the Nq-net's last bias shifts both softmax logits alike: its gradient
-    # cancels analytically and may round to exactly zero
     still = [k for k in params if k not in frozen and torch.equal(state[k], before[k])
-             and k != "nq_net.conv3.bias"]
+             and k not in still_ok]
     check(not still, f"trainable parameters did not move: {still[:5]} ({len(still)})")
     want = greedy_alive(seen["boxes"], seen["valid"], seen["thresh"], seen["sweeps"])
-    err = float((seen["alive"].int() - want.int()).abs().max())
     check(torch.equal(seen["alive"], want), "kernel != plain on the last train step's RPN input")
     args = (seen["boxes"], seen["valid"], seen["thresh"], seen["sweeps"])
-    k_ms, p_ms = cuda_ms(lambda: kernel(*args)), cuda_ms(lambda: greedy_alive(*args))
-    first, last = ({k: round(float(v), 4) for k, v in steps[i][0].items()} for i in (0, -1))
-    print(f"train path: LSFA ResNet-101 bf16 (float32 parameters) at {BUCKET[0]}x{BUCKET[1]}, "
-          f"B=1, 4 steps of train_net; ms per step {[round(x, 2) for x in ms]} (first includes "
-          f"warm-up), after the first {statistics.mean(ms[1:]):.2f} ms/step; peak memory "
-          f"{peak / 2**30:.2f} GiB; nms kernel launches {train_launches} (one per step); host "
-          f"syncs flagged after the first step {syncs}; {len(frozen)} frozen parameters "
-          f"unchanged, {len(params) - len(frozen)} trainable moved; first step {first}; last step "
-          f"{last}")
-    print(f"train path: kernel mask equals plain on the last step's RPN input "
-          f"{tuple(seen['boxes'].shape)}: {int(want.sum())} alive of {int(seen['valid'].sum())} "
-          f"valid; kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us (median of 20)")
-    del model, before, state, params
+    return dict(
+        launches=launches, err=float((seen["alive"].int() - want.int()).abs().max()), ms=ms,
+        peak=torch.cuda.max_memory_allocated(dev),
+        syncs=sum("synchroniz" in str(w.message) for w in caught),
+        frozen=len(frozen), trainable=len(params) - len(frozen), before=before,
+        first={k: round(float(v), 4) for k, v in steps[0][0].items()},
+        last={k: round(float(v), 4) for k, v in steps[-1][0].items()},
+        rpn=(tuple(seen["boxes"].shape), int(want.sum()), int(seen["valid"].sum())),
+        k_ms=cuda_ms(lambda: kernel(*args)), p_ms=cuda_ms(lambda: greedy_alive(*args)))
 
-    # 7. small train step: card (kernel) vs CPU (plain), float32, same draws
+
+def train_line(name, r):
+    """The printed account of a train_run."""
+    shape, alive, valid = r["rpn"]
+    after = statistics.mean(r["ms"][1:])
+    return (f"{name}: ms per step {[round(x, 2) for x in r['ms']]} (first includes warm-up), "
+            f"after the first {after:.2f} ms/step; peak memory {r['peak'] / 2**30:.2f} GiB; "
+            f"nms kernel launches {r['launches']} (one per step); host syncs flagged after the "
+            f"first step {r['syncs']}; {r['frozen']} frozen parameters unchanged, "
+            f"{r['trainable']} trainable moved; first step {r['first']}; last step {r['last']}\n"
+            f"{name}: kernel mask equals plain on the last step's RPN input {shape}: {alive} "
+            f"alive of {valid} valid; kernel {r['k_ms'] * 1e3:.1f} us, plain "
+            f"{r['p_ms'] * 1e3:.1f} us (median of 20)")
+
+
+def tiny_train_card_vs_cpu(dev, nms_cuda, network=None):
+    """The tiny config in float32 (with `network` overrides), 2 steps of
+    B = 2 on the card (kernel) and on the CPU (plain version) from the same
+    weights, batches and uniform draws: metrics within 1e-4 relative,
+    parameters within 1e-5, BatchNorm running statistics within 1e-4 of
+    max(1, |value|): a batch variance is E[x^2] - E[x]^2 in float32 (as in
+    flax), which magnifies the card's and the CPU's float32 differences in
+    the convolutions before it by E[x^2] / Var[x] (up to ~14 in the tiny
+    fusion's BatchNorms). Returns the printed summary."""
+    import torch
+
+    from lsfa_tpu_torch.config import load_config
+    from lsfa_tpu_torch.data.loader import batch_to_device, synthetic_train_batches
+    from lsfa_tpu_torch.models.lsfa import lsfa_from_config
+    from lsfa_tpu_torch.train.driver import init_model
+    from lsfa_tpu_torch.train.schedule import make_optimizer
+    from lsfa_tpu_torch.train.train_step import TrainSettings, make_train_step
+
     tiny = load_config(None, overrides={
-        "network": {"num_layer": 18, "DFF_FEAT_DIM": 64, "ANCHOR_SCALES": [1, 2, 4]},
+        "network": {"num_layer": 18, "DFF_FEAT_DIM": 64, "ANCHOR_SCALES": [1, 2, 4],
+                    **(network or {})},
         "TRAIN": {"RPN_POST_NMS_TOP_N": 64, "BATCH_ROIS_OHEM": 32, "RPN_BATCH_SIZE": 64},
         "tpu": {"compute_dtype": "float32", "max_gt_boxes": 8}})
     hw = (64, 112)
@@ -381,18 +466,297 @@ def train_phases(dev, nms_cuda, greedy_alive):
         mets = [step(batch_to_device(b, d), {n: u.to(d) for n, u in dr.items()})
                 for b, dr in zip(small, draws)]
         results.append(([{n: float(v) for n, v in x.items()} for x in mets],
-                        {n: p.detach().cpu() for n, p in m.named_parameters()}))
+                        {n: p.detach().cpu() for n, p in m.named_parameters()},
+                        {n: b.cpu() for n, b in m.named_buffers() if n.endswith(("_mean", "_var"))}))
     check(nms_cuda.LAUNCHES == 2, f"tiny card steps launched the kernel {nms_cuda.LAUNCHES} times")
-    (cpu_m, cpu_p), (gpu_m, gpu_p) = results
+    (cpu_m, cpu_p, cpu_s), (gpu_m, gpu_p, gpu_s) = results
     met_err = max(abs(g[n] - c[n]) / max(abs(c[n]), 1e-12)
                   for g, c in zip(gpu_m, cpu_m) for n in c)
     par_err = max(float((gpu_p[n] - cpu_p[n]).abs().max()) for n in cpu_p)
+    stat_err, stat_name = max((float(((gpu_s[n] - cpu_s[n]).abs()
+                                      / cpu_s[n].abs().clamp(min=1.0)).max()), n) for n in cpu_s)
     check(met_err < 1e-4, f"tiny train metrics card vs CPU differ by {met_err:.2e} relative")
     check(par_err < 1e-5, f"tiny train parameters card vs CPU differ by {par_err:.2e}")
-    print(f"small train step: tiny LSFA float32, 2 steps of B=2 at {hw[0]}x{hw[1]}, card (kernel, "
-          f"2 launches) vs CPU (plain): metrics max rel err {met_err:.2e}, parameters max abs "
-          f"err {par_err:.2e}; last CPU step {({n: round(v, 4) for n, v in cpu_m[-1].items()})}")
-    return train_launches, err
+    check(stat_err < 1e-4, f"tiny train running statistics card vs CPU differ by {stat_err:.2e} "
+                           f"({stat_name})")
+    return (f"2 steps of B=2 at {hw[0]}x{hw[1]}, card (kernel, 2 launches) vs CPU (plain): "
+            f"metrics max rel err {met_err:.2e}, parameters max abs err {par_err:.2e}, running "
+            f"statistics max err {stat_err:.2e} of max(1, |x|) ({stat_name}); last CPU step "
+            f"{({n: round(v, 4) for n, v in cpu_m[-1].items()})}")
+
+
+def train_phases(dev, nms_cuda, greedy_alive):
+    """Phases 6 and 7. Returns (kernel launches of the flagship train run,
+    max abs error of the kernel's mask against the plain version's)."""
+    from lsfa_tpu_torch.config import get_default_config
+    from lsfa_tpu_torch.train.driver import init_model
+
+    # 6. the flagship train step at full width
+    cfg = get_default_config()
+    model = init_model(cfg, rng_seed=0, device=dev)
+    calibrate_input_bn(model)
+    # the Nq-net's last bias shifts both softmax logits alike: its gradient
+    # cancels analytically and may round to exactly zero
+    r = train_run(cfg, model, 4, nms_cuda, greedy_alive, still_ok=("nq_net.conv3.bias",))
+    print(train_line(f"train path: LSFA ResNet-101 bf16 (float32 parameters) at {BUCKET[0]}x"
+                     f"{BUCKET[1]}, B=1, 4 steps of train_net", r))
+    launches, err = r["launches"], r["err"]
+    del model, r
+
+    # 7. small train step: card (kernel) vs CPU (plain), float32, same draws
+    print(f"small train step: tiny LSFA float32, {tiny_train_card_vs_cpu(dev, nms_cuda)}")
+    return launches, err
+
+
+def rfcn_serving(dev, nms_cuda, greedy_alive):
+    """Phase 8. Returns (kernel launches, max abs error of the kernel's
+    mask against the plain version's, the 12 frames' detections)."""
+    import torch
+
+    from lsfa_tpu_torch.config import load_config
+    from lsfa_tpu_torch.eval.rfcn_tester import RFCNDetector, rfcn_from_config
+    from lsfa_tpu_torch.models.lsfa import init_params
+    from lsfa_tpu_torch.ops.proposal import proposal_candidates
+
+    cfg = load_config(None, overrides=RFCN_OVERRIDES)
+    model = rfcn_from_config(cfg, device=dev)
+    init_params(model, torch.Generator(device=dev).manual_seed(0))
+    det = RFCNDetector(model, cfg, BUCKET)
+    rng = np.random.default_rng(7)
+    frames = np.zeros((12, 1) + BUCKET + (3,), np.uint8)
+    frames[:, :, :CONTENT[0], :CONTENT[1]] = rng.integers(0, 256, (12, 1) + CONTENT + (3,),
+                                                          dtype=np.uint8)
+    info = np.asarray([[CONTENT[0], CONTENT[1], 600 / 576]], np.float32)
+    torch.cuda.synchronize()
+    nms_cuda.LAUNCHES = 0
+    outs, enqueue, wall, counts, syncs = [], [], [], [], 0
+    for i, frame in enumerate(frames):
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if i > 0:                       # the first frame initializes cuDNN/cuBLAS
+                torch.cuda.set_sync_debug_mode("warn")
+            out = det.detect(frame, info)
+            torch.cuda.set_sync_debug_mode("default")
+        enqueue.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+        counts.append(nms_cuda.LAUNCHES)
+        syncs += sum("synchroniz" in str(w.message) for w in caught)
+        outs.append(out)
+    launches = nms_cuda.LAUNCHES
+    check(counts == [2 * (i + 1) for i in range(len(frames))],
+          f"kernel launches after each frame {counts}, not 2 per frame")
+    check(syncs == 0, f"{syncs} host syncs flagged after the first frame")
+    for dets, valid in outs:
+        check(tuple(dets.shape) == (300, 6) and tuple(valid.shape) == (300,),
+              f"detection shapes {tuple(dets.shape)}, {tuple(valid.shape)}")
+        check(bool(torch.isfinite(dets).all()), "non-finite detections")
+        check(int(valid.sum()) > 0, "no valid detections")
+    # the kernel on the last frame's real RPN input
+    with torch.no_grad():
+        out = model(torch.from_numpy(frames[-1]).to(dev))
+        boxes, _, valid = proposal_candidates(
+            out["rpn_fg"], out["rpn_deltas"], det.anchors, torch.from_numpy(info).to(dev),
+            cfg.TEST.RPN_PRE_NMS_TOP_N, cfg.TEST.RPN_MIN_SIZE, cfg.network.RPN_FEAT_STRIDE,
+            cfg.tpu.nms_tier)
+        boxes = boxes.contiguous()
+        got, _ = nms_cuda.greedy_alive_cuda(boxes, valid, cfg.TEST.RPN_NMS_THRESH, 31)
+        want = greedy_alive(boxes, valid, cfg.TEST.RPN_NMS_THRESH, 31)
+    check(torch.equal(got, want), "kernel != plain on the R-FCN frame's RPN input")
+    steady = statistics.mean(wall[1:])
+    print(f"R-FCN serving: ResNet-101 bf16 (no DCN) at {BUCKET[0]}x{BUCKET[1]}, 12 frames of "
+          f"RFCNDetector.detect; per-frame wall ms {[round(x * 1e3, 2) for x in wall]} (first "
+          f"includes warm-up); after the first {steady * 1e3:.2f} ms/frame = {1 / steady:.1f} "
+          f"frames/s, of it host enqueue {statistics.mean(enqueue[1:]) * 1e3:.2f} ms/frame; "
+          f"nms kernel launches {launches} (2 per frame); host syncs flagged after the "
+          f"first frame {syncs}; valid detections on the last frame {int(outs[-1][1].sum())}")
+    print(f"R-FCN serving: kernel mask equals plain on the last frame's RPN input "
+          f"{tuple(boxes.shape)}: {int(got.sum())} alive of {int(valid.sum())} valid")
+    return launches, float((got.int() - want.int()).abs().max()), outs
+
+
+def rfcn_training(dev, nms_cuda, greedy_alive):
+    """Phase 9. Returns (kernel launches, max abs error)."""
+    from lsfa_tpu_torch.config import load_config
+    from lsfa_tpu_torch.train.driver import init_model
+
+    cfg = load_config(None, overrides=RFCN_OVERRIDES)
+    model = init_model(cfg, rng_seed=0, device=dev)
+    calibrate_input_bn(model)
+    r = train_run(cfg, model, 4, nms_cuda, greedy_alive)
+    print(train_line(f"R-FCN training: ResNet-101 bf16 (float32 parameters) at {BUCKET[0]}x"
+                     f"{BUCKET[1]}, B=1, 4 steps of train_net", r))
+    return r["launches"], r["err"]
+
+
+def rfcn_account(dev):
+    """Phase 13's account of the R-FCN paths on a fresh full-width R-FCN
+    (random weights from a seed): per frame of RFCNDetector.detect, then
+    per train step of make_rfcn_train_step, the host's enqueue and the wall
+    time until synchronized (medians of 5 after a warm-up call), then under
+    torch.profiler (3 calls) the device time, the device kernels per call
+    and the five kernels that take the most device time. The device's busy
+    share is the profiled device time over the unprofiled wall time."""
+    import torch
+
+    from lsfa_tpu_torch.config import load_config
+    from lsfa_tpu_torch.data.loader import batch_to_device, synthetic_train_batches
+    from lsfa_tpu_torch.eval.rfcn_tester import RFCNDetector
+    from lsfa_tpu_torch.train.driver import init_model
+    from lsfa_tpu_torch.train.schedule import make_optimizer
+    from lsfa_tpu_torch.train.train_step import (
+        TrainSettings, draw_uniforms, make_rfcn_train_step)
+
+    cfg = load_config(None, overrides=RFCN_OVERRIDES)
+    model = init_model(cfg, rng_seed=1, device=dev)
+    calibrate_input_bn(model)
+    det = RFCNDetector(model, cfg, BUCKET)
+    frame = np.zeros((1,) + BUCKET + (3,), np.uint8)
+    frame[:, :CONTENT[0], :CONTENT[1]] = np.random.default_rng(8).integers(
+        0, 256, (1,) + CONTENT + (3,), dtype=np.uint8)
+    info = np.asarray([[CONTENT[0], CONTENT[1], 600 / 576]], np.float32)
+    settings = TrainSettings.from_config(cfg)
+    step = make_rfcn_train_step(model, settings, *make_optimizer(
+        model, base_lr=cfg.TRAIN.lr, lr_steps=[1000]))
+    batch = batch_to_device(synthetic_train_batches(
+        1, BUCKET, seed=5, num_classes=cfg.dataset.NUM_CLASSES, max_gt=cfg.tpu.max_gt_boxes,
+        content_hw=CONTENT)[0], dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for name, fn in (("R-FCN frame (RFCNDetector.detect)", lambda: det.detect(frame, info)),
+                     ("R-FCN train step (B=1)",
+                      lambda: step(batch, draw_uniforms(settings, batch, gen)))):
+        fn()
+        torch.cuda.synchronize()
+        enqueue, wall = [], []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            enqueue.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
+        names, dev_us, top = device_kernels(fn, 3, top=5)
+        wall_ms = statistics.median(wall) * 1e3
+        print(f"profiled: {name} at {BUCKET[0]}x{BUCKET[1]}: host enqueue "
+              f"{statistics.median(enqueue) * 1e3:.2f} ms, wall {wall_ms:.2f} ms (median of 5); "
+              f"device {dev_us / 1e3:.2f} ms in {len(names) / 3:.0f} kernels per call (mean of "
+              f"3), busy share {dev_us / 1e3 / wall_ms:.2f}; top kernels by device time "
+              + "; ".join(f"{n} {share:.3f}" for n, share in top))
+
+
+def bn_training(dev, nms_cuda, greedy_alive):
+    """Phase 10. Returns (kernel launches, max abs error)."""
+    import torch
+
+    from lsfa_tpu_torch.config import load_config
+    from lsfa_tpu_torch.train.driver import init_model
+
+    cfg = load_config(None, overrides={"network": BN_VARIANTS})
+    model = init_model(cfg, rng_seed=0, device=dev)
+    calibrate_input_bn(model)
+    r = train_run(cfg, model, 2, nms_cuda, greedy_alive, still_ok=("nq_net.conv3.bias",))
+    state, before = model.state_dict(), r["before"]
+    bns = ("rnet.bn", "small_fuse.cur_feat_bn", "small_fuse.warp_conv_feat_bn")
+    for bn in bns:
+        for k in ("running_mean", "running_var"):
+            check(not torch.equal(state[f"{bn}.{k}"], before[f"{bn}.{k}"]), f"{bn}.{k} did not move")
+        for k in ("weight", "bias"):
+            check(torch.equal(state[f"{bn}.{k}"], before[f"{bn}.{k}"]), f"frozen {bn}.{k} moved")
+    print(train_line(f"train BN: LSFA ResNet-101 bf16 with res_diff_bn and "
+                     f"small_net_bn_before_fuse at {BUCKET[0]}x{BUCKET[1]}, B=1, 2 steps of "
+                     f"train_net", r))
+    print(f"train BN: running statistics of {', '.join(bns)} moved, their scale and bias "
+          f"unchanged; rnet.bn running var {state['rnet.bn.running_var'].tolist()}")
+    launches, err = r["launches"], r["err"]
+    del model, r, state, before
+    print(f"train BN small: tiny LSFA float32 with res_diff_bn and small_net_bn_before_fuse, "
+          f"{tiny_train_card_vs_cpu(dev, nms_cuda, BN_VARIANTS)}")
+    return launches, err
+
+
+def per_frame_vs_gop(dev):
+    """Phase 11: process_frame over the flags 0, 2, ..., 1, 2, ... gives
+    what process_prepared_window gives on the tiny float32 LSFA."""
+    import torch
+
+    from lsfa_tpu_torch.eval.tester import StreamingDetector
+
+    tiny, model = tiny_stream_model(dev)
+    payloads = synth_payloads(np.random.default_rng(2), 2, bucket=(64, 112), content=(60, 104),
+                              scale=0.5)
+    kd, kv, cd, cv = StreamingDetector(model, tiny, (64, 112)).process_prepared_window(
+        payloads, first=True)
+    det = StreamingDetector(model, tiny, (64, 112))
+    score_err, flags = 0.0, []
+    for g, (frames, smalls, mv, res, info) in enumerate(payloads):
+        for i in range(GOP):
+            flags.append(det.key_frame_flag(det.frame_id))
+            if i == 0:
+                d, v = det.process_frame(frames[0:1], info)
+                want_d, want_v = kd[g], kv[g]
+            else:
+                d, v = det.process_frame(None, info, mv[i:i + 1], res[i:i + 1],
+                                         small=smalls[i:i + 1])
+                want_d, want_v = cd[g, i - 1:i], cv[g, i - 1:i]
+            check(torch.equal(v, want_v), f"GOP {g} frame {i}: valid masks differ per frame")
+            err = float((torch.sort(d[..., 1], dim=-1)[0]
+                         - torch.sort(want_d[..., 1], dim=-1)[0]).abs().max())
+            score_err = max(score_err, err)
+    check(score_err < 1e-4, f"per-frame vs per-GOP sorted scores differ by {score_err}")
+    check(flags == [0] + [2] * (GOP - 1) + [1] + [2] * (GOP - 1), f"key flags {flags}")
+    print(f"per frame: tiny LSFA float32 on the card, 2 GOPs through process_frame (flags 0, 2 x "
+          f"{GOP - 1}, 1, 2 x {GOP - 1}) against process_prepared_window: valid masks equal, "
+          f"sorted scores max err {score_err:.2e}")
+
+
+def scoring(outs):
+    """Phase 12: collect_detections and vid_eval over the R-FCN serving
+    detections against seeded gt boxes; the gt planted as detections
+    scores 1.0."""
+    from lsfa_tpu_torch.eval.tester import collect_detections
+    from lsfa_tpu_torch.eval.vid_eval import vid_eval
+
+    rng = np.random.default_rng(11)
+    annotations = {}
+    for i in range(len(outs)):
+        n = int(rng.integers(1, 6))
+        x1 = rng.uniform(0, 700, n)
+        y1 = rng.uniform(0, 400, n)
+        boxes = np.stack([x1, y1, x1 + rng.uniform(30, 300, n), y1 + rng.uniform(30, 200, n)], 1)
+        annotations[i] = {"labels": rng.integers(1, 31, n), "boxes": boxes.astype(np.float32)}
+    detections = {i: collect_detections(d, v) for i, (d, v) in enumerate(outs)}
+    ap = vid_eval(detections, annotations, 31)
+    mean_ap = float(np.nanmean(ap))
+    check(np.isfinite(mean_ap) and 0.0 <= mean_ap <= 1.0, f"mAP {mean_ap}")
+    planted = {i: {"labels": a["labels"], "scores": np.ones(len(a["labels"])),
+                   "boxes": a["boxes"]} for i, a in annotations.items()}
+    planted_ap = vid_eval(planted, annotations, 31)
+    check(float(np.nanmean(planted_ap)) == 1.0, f"planted gt scored {planted_ap}")
+    n_det = sum(len(d["labels"]) for d in detections.values())
+    print(f"scoring: vid_eval over the 12 R-FCN frames ({n_det} detections) against seeded gt "
+          f"({sum(len(a['labels']) for a in annotations.values())} boxes, "
+          f"{int(np.isfinite(ap).sum())} classes): mAP {mean_ap:.4f} (random weights); the gt "
+          f"planted as detections: mAP {float(np.nanmean(planted_ap)):.4f}")
+
+
+def tiny_stream_model(dev):
+    """The tiny streaming config (float32, RPN tier off) and its LSFA on
+    `dev`, weights from a seed on the CPU with the R-FCN class kernel
+    spread to std 0.05."""
+    import torch
+
+    from lsfa_tpu_torch.config import load_config
+    from lsfa_tpu_torch.models.lsfa import init_params, lsfa_from_config
+
+    tiny = load_config(None, overrides={
+        "network": {"num_layer": 18, "DFF_FEAT_DIM": 64, "ANCHOR_SCALES": [1, 2, 4]},
+        "TEST": {"RPN_PRE_NMS_TOP_N": 256, "RPN_POST_NMS_TOP_N": 64, "max_per_image": 20},
+        "tpu": {"compute_dtype": "float32", "nms_tier": 0}})
+    model = lsfa_from_config(tiny, device="cpu")
+    init_params(model, torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        model.rfcn_cls.weight.normal_(0.0, 0.05, generator=torch.Generator().manual_seed(4))
+    return tiny, model.to(dev)
 
 
 def main():
@@ -534,14 +898,7 @@ def main():
           f"{tuple(boxes.shape)}: {int(got.sum())} alive of {int(valid.sum())} valid")
 
     # 5. small input: card (kernel) vs CPU (plain), float32, same weights
-    tiny = load_config(None, overrides={
-        "network": {"num_layer": 18, "DFF_FEAT_DIM": 64, "ANCHOR_SCALES": [1, 2, 4]},
-        "TEST": {"RPN_PRE_NMS_TOP_N": 256, "RPN_POST_NMS_TOP_N": 64, "max_per_image": 20},
-        "tpu": {"compute_dtype": "float32", "nms_tier": 0}})
-    cpu_model = lsfa_from_config(tiny, device="cpu")
-    init_params(cpu_model, torch.Generator().manual_seed(3))
-    with torch.no_grad():
-        cpu_model.rfcn_cls.weight.normal_(0.0, 0.05, generator=torch.Generator().manual_seed(4))
+    tiny, cpu_model = tiny_stream_model("cpu")
     gpu_model = lsfa_from_config(tiny, device=dev)
     gpu_model.load_state_dict(cpu_model.state_dict())
     small = synth_payloads(np.random.default_rng(2), 2, bucket=(64, 112), content=(60, 104),
@@ -562,10 +919,18 @@ def main():
           f"{carry_err:.2e}, valid masks equal, sorted scores max err {score_err:.2e}")
 
     train_launches, train_err = train_phases(dev, nms_cuda, greedy_alive)
-    max_err = max(max_err, train_err)
+    # 8-12: the single-frame R-FCN, the train-mode BatchNorms, per-frame
+    # streaming and scoring
+    serve_launches, serve_err, serve_outs = rfcn_serving(dev, nms_cuda, greedy_alive)
+    rfcn_launches, rfcn_err = rfcn_training(dev, nms_cuda, greedy_alive)
+    bn_launches, bn_err = bn_training(dev, nms_cuda, greedy_alive)
+    per_frame_vs_gop(dev)
+    scoring(serve_outs)
+    max_err = max(max_err, train_err, serve_err, rfcn_err, bn_err)
 
-    # 8. launches and device time by torch.profiler, last: after a profiled
-    # window the host's launches stay slower, which would bias phases 3-7
+    # 13. launches and device time by torch.profiler, last: after a profiled
+    # window the host's launches stay slower, which would bias phases 3-12
+    rfcn_account(dev)
     timed = iter(shapes)
     for name, b, v, thresh, sweeps, is_timed in checked:
         names, _ = device_kernels(lambda: nms_cuda.greedy_alive_cuda(b, v, thresh, sweeps))
@@ -589,10 +954,13 @@ def main():
         "name": "nms_sweep", "route": "cuda",
         "source": "lsfa_tpu_torch/csrc/nms_sweep.cu",
         "replaces": "lsfa_tpu/ops/pallas_nms.py:97",
-        "launches": launches + train_launches, "max_abs_err": max_err,
+        "launches": launches + train_launches + serve_launches + rfcn_launches + bn_launches,
+        "max_abs_err": max_err,
         "ms": rpn["us"] / 1e3, "plain_ms": rpn["plain_us"] / 1e3,
         "bound_ms": rpn["bound_us"] / 1e3, "bound_by": rpn["bound_by"], "library_ms": None,
-        "launches_by_path": {"streaming": launches, "train": train_launches},
+        "launches_by_path": {"streaming": launches, "train": train_launches,
+                             "rfcn_serve": serve_launches, "rfcn_train": rfcn_launches,
+                             "train_bn": bn_launches},
         "shapes": shapes}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -16,3 +16,10 @@ def pad_to_bucket(tensor: np.ndarray, bucket_hw, axis_h: int = 1,
     pads[axis_h] = (0, bh - h)
     pads[axis_w] = (0, bw - w)
     return np.pad(tensor, pads)
+
+
+def small_pool_factor(small_net_stride: int) -> int:
+    """Host-side downscale factor feeding the small net: the model pools
+    4x for stride 4 (backbone stage 1 adds /4) and 2x for stride 8 (stage 2
+    adds /4)."""
+    return 4 if small_net_stride == 4 else 2

@@ -100,10 +100,21 @@ def synthetic_train_batches(n: int, bucket_hw, seed: int = 0, batch_images: int 
     return batches
 
 
+def to_device(x, device, dtype=None):
+    """Host array or tensor -> tensor on `device` (cast to `dtype` when
+    given). A tensor already there is returned as it is; host data goes to
+    a card through pinned memory, so the copy does not block the host."""
+    t = torch.as_tensor(x)
+    if dtype is not None:
+        t = t.to(dtype)
+    device = torch.device(device)
+    if t.device == device:
+        return t
+    if device.type == "cuda" and t.device.type == "cpu":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
 def batch_to_device(batch: dict, device) -> dict:
-    """Host batch -> tensors on `device`; to a card through pinned memory
-    without blocking the host."""
-    if torch.device(device).type != "cuda":
-        return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
-    return {k: torch.as_tensor(v).pin_memory().to(device, non_blocking=True)
-            for k, v in batch.items()}
+    """Host batch -> tensors on `device` (`to_device` on each entry)."""
+    return {k: to_device(v, device) for k, v in batch.items()}

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from lsfa_tpu_torch.ops.anchors import anchor_grid
 from lsfa_tpu_torch.ops.boxes import bbox_pred, clip_boxes
 from lsfa_tpu_torch.ops.nms import nms_fixed
 from lsfa_tpu_torch.ops.proposal import rpn_proposals
@@ -90,3 +91,38 @@ def detect_batch(out, anchors, im_info, num_classes: int, pre_nms: int = 6000,
         cls_prob, pooled_bbox.mean(dim=(2, 3)), rois, roi_valid, im_info,
         num_classes=num_classes, max_per_image=max_per_image, nms_thresh=nms_thresh,
         score_thresh=score_thresh, bbox_stds=bbox_stds, num_reg_classes=num_reg_classes)
+
+
+def detect_from_maps(out, anchors, im_info, **kw):
+    """One frame's output dict (leading batch dim 1) -> its detections
+    (M, 6) and validity (M,): `detect_batch` at B = 1."""
+    dets, valid = detect_batch(out, anchors, im_info, **kw)
+    return dets[0], valid[0]
+
+
+def detection_kwargs(cfg) -> dict:
+    """The keyword arguments of `detect_batch` that a config sets (TEST.*
+    proposal and NMS settings, the RPN tier, the class count)."""
+    return dict(
+        num_classes=cfg.dataset.NUM_CLASSES,
+        pre_nms=cfg.TEST.RPN_PRE_NMS_TOP_N,
+        post_nms=cfg.TEST.RPN_POST_NMS_TOP_N,
+        rpn_nms_thresh=cfg.TEST.RPN_NMS_THRESH,
+        min_size=cfg.TEST.RPN_MIN_SIZE,
+        feat_stride=cfg.network.RPN_FEAT_STRIDE,
+        max_per_image=cfg.TEST.max_per_image,
+        nms_thresh=cfg.TEST.NMS,
+        score_thresh=cfg.TEST.SCORE_THRESH,
+        bbox_stds=tuple(cfg.TRAIN.BBOX_STDS),
+        nms_tier=cfg.tpu.nms_tier,
+        num_reg_classes=2 if cfg.CLASS_AGNOSTIC else cfg.dataset.NUM_CLASSES,
+    )
+
+
+def anchors_for(cfg, image_hw, device):
+    """The anchor grid of the feature map of an image_hw bucket, on
+    `device`."""
+    stride = cfg.network.RPN_FEAT_STRIDE
+    return torch.from_numpy(anchor_grid(
+        image_hw[0] // stride, image_hw[1] // stride, stride,
+        tuple(cfg.network.ANCHOR_RATIOS), tuple(cfg.network.ANCHOR_SCALES))).to(device)

@@ -4,8 +4,9 @@ The counterpart of ``lsfa_tpu.eval.tester.StreamingDetector``. The cached
 key feature (float32) and preprocessed key frame stay on the device; each
 GOP is one key step (forward_key + detection) and one batched step over its
 non-key frames (forward_cur + detection), all enqueued without waiting for
-the device. Detections come back as one fixed-size (M, 6) tensor per frame;
-reading them is the only host sync.
+the device; `process_frame` runs one frame at a time by the key-frame
+schedule. Detections come back as one fixed-size (M, 6) tensor per frame;
+reading them (`collect_detections`) is the only host sync.
 """
 
 from __future__ import annotations
@@ -13,8 +14,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lsfa_tpu_torch.eval.detector import detect_batch
-from lsfa_tpu_torch.ops.anchors import anchor_grid
+from lsfa_tpu_torch.data.image import small_pool_factor
+from lsfa_tpu_torch.data.loader import to_device
+from lsfa_tpu_torch.eval.detector import anchors_for, detect_batch, detection_kwargs
 
 
 class StreamingDetector:
@@ -34,36 +36,12 @@ class StreamingDetector:
         stride = cfg.network.RPN_FEAT_STRIDE
         self.feat_hw = (h // stride, w // stride)
         self.key_interval = cfg.TEST.KEY_FRAME_INTERVAL
-        self.anchors = torch.from_numpy(anchor_grid(
-            *self.feat_hw, stride, tuple(cfg.network.ANCHOR_RATIOS),
-            tuple(cfg.network.ANCHOR_SCALES))).to(self.device)
-        self.det_kw = dict(
-            num_classes=cfg.dataset.NUM_CLASSES,
-            pre_nms=cfg.TEST.RPN_PRE_NMS_TOP_N,
-            post_nms=cfg.TEST.RPN_POST_NMS_TOP_N,
-            rpn_nms_thresh=cfg.TEST.RPN_NMS_THRESH,
-            min_size=cfg.TEST.RPN_MIN_SIZE,
-            feat_stride=stride,
-            max_per_image=cfg.TEST.max_per_image,
-            nms_thresh=cfg.TEST.NMS,
-            score_thresh=cfg.TEST.SCORE_THRESH,
-            bbox_stds=tuple(cfg.TRAIN.BBOX_STDS),
-            nms_tier=cfg.tpu.nms_tier,
-            num_reg_classes=2 if cfg.CLASS_AGNOSTIC else cfg.dataset.NUM_CLASSES,
-        )
+        self.anchors = anchors_for(cfg, image_hw, self.device)
+        self.det_kw = detection_kwargs(cfg)
         self.reset()
 
     def _put(self, x, dtype=None):
-        """Host array or tensor -> tensor on the model's device. Host data
-        goes through pinned memory so the copy does not block the host."""
-        t = torch.as_tensor(x)
-        if dtype is not None:
-            t = t.to(dtype)
-        if t.device == self.device:
-            return t
-        if self.device.type == "cuda":
-            t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
+        return to_device(x, self.device, dtype)
 
     def reset(self):
         """Start a new video stream."""
@@ -138,3 +116,54 @@ class StreamingDetector:
         ress = np.stack([p[3][1:] for p in payloads]).astype(np.float32)
         info = np.asarray(payloads[0][4], np.float32)[None]
         return self.process_gops(key_frames, smalls, mvs, ress, info, first=first)
+
+    @torch.no_grad()
+    def process_frame(self, data, im_info, motion_vector=None, res_diff=None,
+                      flag: int | None = None, small=None):
+        """One frame of the stream. flag (default: `key_frame_flag` of the
+        frame count): 0 or 1 runs the key graph on data, a raw (1, H, W, 3)
+        BGR or (1, H*3/2, W, 1) I420 frame (flag 0, or any key frame under
+        lt_off, restarts the feature recurrence); 2 runs the non-key graph
+        on small, the raw 1/small_net_stride frame, made on the host as a
+        block mean of the BGR data when omitted, and on motion_vector
+        (1, fh, fw, 2) and res_diff (1, fh, fw, 3), zeros when omitted.
+        im_info: (3,) or (1, 3).
+
+        Returns (dets (1, M, 6), valid (1, M)), device tensors."""
+        if flag is None:
+            flag = self.key_frame_flag(self.frame_id)
+        m = self.model
+        im_info = self._put(im_info, torch.float32).reshape(-1, 3)
+        if flag in (0, 1):
+            boot = flag == 0 or self.lt_off
+            is_first = torch.full((1,), 1.0 if boot else 0.0, device=self.device)
+            out = m.forward_key(self._put(data), self.data_key, self.feat_key, is_first)
+            self.feat_key = out["feat"]
+            self.data_key = out["prep"]
+        else:
+            if small is None:
+                s = small_pool_factor(self.cfg.network.small_net_stride)
+                x = torch.as_tensor(data).float()
+                b, h, w = x.shape[0], x.shape[1] // s, x.shape[2] // s
+                small = x[:, :h * s, :w * s].reshape(b, h, s, w, s, 3).mean(dim=(2, 4))
+            fh, fw = self.feat_hw
+            mv = (torch.zeros((1, fh, fw, 2), device=self.device) if motion_vector is None
+                  else self._put(motion_vector, torch.float32))
+            rd = (torch.zeros((1, fh, fw, 3), device=self.device) if res_diff is None
+                  else self._put(res_diff, torch.float32))
+            out = m.forward_cur(self._put(small), self.feat_key, mv, rd)
+        self.frame_id += 1
+        return detect_batch(out, self.anchors, im_info, **self.det_kw)
+
+
+def collect_detections(dets, valid) -> dict:
+    """A frame's fixed-size detections ((M, 6) or (1, M, 6), with their
+    validity) -> the dict of numpy arrays `vid_eval` reads: labels,
+    scores and boxes of the valid rows. Reading a device tensor waits for
+    the device."""
+    d = torch.as_tensor(dets).cpu().numpy()
+    v = torch.as_tensor(valid).cpu().numpy()
+    if d.ndim == 3:
+        d, v = d[0], v[0]
+    d = d[v]
+    return {"labels": d[:, 0].astype(int), "scores": d[:, 1], "boxes": d[:, 2:6]}

@@ -2,6 +2,9 @@
 ``lsfa_tpu.models.aggregation``: the R-net residual adapter, the Nq-net
 long-term quality weights, and the short-term small-net fusion by add.
 The F-net exists here only as the 'None' identity, so it has no module.
+The optional BatchNorms (the R-net's `bn`, the fusion's `cur_feat_bn` and
+`warp_conv_feat_bn`) train with batch statistics in training mode and use
+their running statistics in eval mode, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -9,7 +12,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from lsfa_tpu_torch.models.layers import Conv, FrozenBN, avg_pool
+from lsfa_tpu_torch.models.layers import BatchNorm, Conv, avg_pool
 
 
 class RNet(nn.Module):
@@ -22,7 +25,7 @@ class RNet(nn.Module):
         self.dtype = dtype
         self.num_conv = num_conv
         kw = dict(dtype=dtype, init="normal01", device=device)
-        self.bn = FrozenBN(3, dtype=dtype, device=device) if use_bn else None
+        self.bn = BatchNorm(3, dtype=dtype, device=device) if use_bn else None
         cin = 3
         for i in range(num_conv):
             self.add_module(f"conv{i}", Conv(cin, 256, 3, **kw))
@@ -75,8 +78,8 @@ class SmallNetFuse(nn.Module):
         self.cur_scale = Conv(in_channels, in_channels, 1, **kw) if scale_before_fuse else None
         self.fuse_reduce_add = Conv(in_channels, feat_dim, 3, **kw)
         if bn_before_fuse:
-            self.cur_feat_bn = FrozenBN(feat_dim, dtype=dtype, device=device)
-            self.warp_conv_feat_bn = FrozenBN(feat_dim, dtype=dtype, device=device)
+            self.cur_feat_bn = BatchNorm(feat_dim, dtype=dtype, device=device)
+            self.warp_conv_feat_bn = BatchNorm(feat_dim, dtype=dtype, device=device)
         else:
             self.cur_feat_bn = self.warp_conv_feat_bn = None
 

@@ -2,8 +2,10 @@
 
 Every parameter is float32 (flax's param_dtype); a layer casts its input
 and weights to its compute `dtype` when it runs, as a flax layer with
-`dtype=bfloat16` does. BatchNorm is frozen (running statistics, eps 2e-5),
-computes in float32 and returns its compute dtype.
+`dtype=bfloat16` does. BatchNorm computes in float32 (eps 2e-5) and
+returns its compute dtype; `FrozenBN` always uses its running statistics,
+`BatchNorm` (the R-net's and the small-net fusion's) uses batch
+statistics in training mode.
 
 Each conv carries the name of its initializer (`init`), which
 ``models/lsfa.py::init_params`` reads to draw weights without JAX.
@@ -16,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 2e-5
+BN_MOMENTUM = 0.9
 
 
 def mx_pad(kernel: int, dilate: int = 1) -> int:
@@ -77,6 +80,29 @@ class FrozenBN(nn.Module):
     def forward(self, x):
         y = F.batch_norm(x.float(), self.running_mean, self.running_var,
                          self.weight, self.bias, training=False, eps=BN_EPS)
+        return y.to(self.dtype)
+
+
+class BatchNorm(FrozenBN):
+    """BatchNorm with flax's training semantics (``nn.BatchNorm`` at
+    momentum 0.9, the JAX package's `BatchNorm(frozen=False)`): in
+    training mode it normalizes with the float32 batch mean and biased
+    variance over (N, H, W), the variance as E[x^2] - E[x]^2 clamped at 0,
+    and moves the running statistics to 0.9 * running + 0.1 * batch; in
+    eval mode it is a FrozenBN. The update is computed here, because
+    F.batch_norm would move running_var by the unbiased variance."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
+            self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(self.dtype)
 
 

@@ -5,8 +5,9 @@ The counterpart of ``lsfa_tpu.models.lsfa``: the key-frame graph
 feature and Nq-net fusion), the non-key graph (`forward_cur`:
 motion-vector warp, R-net residual, small-net fusion), and the training
 graph (`forward_train`: both, with ChooseFeat selects), each followed by
-the RPN and R-FCN heads. The 1024-ch feature splits along channels into
-(rpn_feat, rfcn_feat) halves.
+the RPN and R-FCN heads of ``models.rfcn.RFCNBase``, which also holds the
+trunk. The 1024-ch feature splits along channels into (rpn_feat,
+rfcn_feat) halves.
 
 The public methods take and return NHWC tensors with the JAX package's
 channel orders (RPN logits [bg A | fg A], flow (dx, dy)); inside, the
@@ -28,15 +29,8 @@ from lsfa_tpu_torch.models.aggregation import NqNet, RNet, SmallNetFuse
 from lsfa_tpu_torch.models.flownet import FlowNetS
 from lsfa_tpu_torch.models.layers import Conv, Deconv2x, FrozenBN
 from lsfa_tpu_torch.models.resnet import DeformConv2d, ResNetBackbone
+from lsfa_tpu_torch.models.rfcn import RFCNBase, nchw as _nchw, nhwc as _nhwc
 from lsfa_tpu_torch.ops.warp import flow_warp
-
-
-def _nchw(x):
-    return x.permute(0, 3, 1, 2)
-
-
-def _nhwc(x):
-    return x.permute(0, 2, 3, 1)
 
 
 def _warp(feat, flow):
@@ -44,7 +38,7 @@ def _warp(feat, flow):
     return _nchw(flow_warp(_nhwc(feat), _nhwc(flow)))
 
 
-class LSFA(nn.Module):
+class LSFA(RFCNBase):
     def __init__(self, num_classes: int = 31, num_reg_classes: int = 2,
                  feat_dim: int = 1024, num_layer: int = 101, nettype: str = "resnet",
                  num_anchors: int = 9, add_dcn: bool = True, rnet_num_conv: int = 0,
@@ -60,7 +54,6 @@ class LSFA(nn.Module):
                  normalize_rpn: bool = True,
                  pixel_means: Sequence[float] = (0.0, 0.0, 0.0),   # BGR order
                  pixel_scale: float = 1.0, dtype=torch.float32, device=None):
-        super().__init__()
         unsupported = {
             "nettype": nettype != "resnet",
             "fnet_type": fnet_type != "None",
@@ -71,24 +64,15 @@ class LSFA(nn.Module):
         bad = [k for k, v in unsupported.items() if v]
         if bad:
             raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
-        self.num_classes = num_classes
-        self.num_reg_classes = num_reg_classes
-        self.feat_dim = feat_dim
-        self.num_anchors = num_anchors
+        super().__init__(num_classes, num_reg_classes, feat_dim, num_layer, num_anchors,
+                         add_dcn, anchor_means, anchor_stds, normalize_rpn, pixel_means,
+                         pixel_scale, dtype, device)
         self.add_small_net = add_small_net
         self.small_net_stride = small_net_stride
         self.add_rnet = add_rnet
         self.add_lt_aggregation = add_lt_aggregation
-        self.normalize_rpn = normalize_rpn
-        self.pixel_scale = pixel_scale
-        self.dtype = dtype
         kw = dict(dtype=dtype, device=device)
 
-        dcn_u = (0, 1, 1, 3) if add_dcn else (0, 0, 0, 0)
-        dcn_g = (0, 4, 4, 4) if add_dcn else (0, 0, 0, 0)
-        self.backbone = ResNetBackbone(num_layer, 16, dcn_u, dcn_g, **kw)
-        self.feat_conv_3x3 = Conv(self.backbone.out_channels[-1], feat_dim, 3, dilate=6,
-                                  init="normal01", **kw)
         if add_lt_aggregation:
             self.flownet = FlowNetS(feat_dim, **kw)
             self.nq_net = NqNet(feat_dim, **kw) if add_Nq_net else None
@@ -100,20 +84,7 @@ class LSFA(nn.Module):
             self.small_fuse = SmallNetFuse(
                 self.small_net_backbone.out_channels[-1], small_net_stride,
                 small_net_bn_before_fuse, small_net_scale_before_fuse, feat_dim, **kw)
-        half, a, g = feat_dim // 2, num_anchors, 7
-        head = dict(init="normal01", **kw)
-        self.rpn_cls_score = Conv(half, 2 * a, 1, **head)
-        self.rpn_bbox_pred = Conv(half, 4 * a, 1, **head)
-        self.rfcn_cls = Conv(half, num_classes * g * g, 1, **head)
-        self.rfcn_bbox = Conv(half, 4 * num_reg_classes * g * g, 1, **head)
-
-        f32 = torch.float32
-        self.register_buffer("pixel_means_rgb", torch.tensor(
-            list(pixel_means)[::-1], dtype=f32, device=device), persistent=False)
-        self.register_buffer("rpn_stds", torch.tensor(
-            list(anchor_stds) * a, dtype=f32, device=device), persistent=False)
-        self.register_buffer("rpn_means", torch.tensor(
-            list(anchor_means) * a, dtype=f32, device=device), persistent=False)
+        self._build_heads()
 
     # ------- building blocks -------
 
@@ -125,8 +96,7 @@ class LSFA(nn.Module):
         upsampling (the data plane's Y=16, U=V=128 pad converts to zero)."""
         if img.shape[-1] == 1:
             return self._preprocess_i420(img[..., 0])
-        x = torch.flip(img.float(), dims=[-1])
-        return (x - self.pixel_means_rgb) * self.pixel_scale
+        return super().preprocess(img)
 
     def _preprocess_i420(self, packed):
         h = packed.shape[-2] * 2 // 3
@@ -144,10 +114,6 @@ class LSFA(nn.Module):
         b = yf + 2.017232 * cb
         rgb = torch.stack([r, g, b], dim=-1).clamp(0.0, 255.0)
         return (rgb - self.pixel_means_rgb) * self.pixel_scale
-
-    def conv_feat(self, ims):
-        """Backbone + dilated 3x3 -> the DFF feature (NCHW)."""
-        return torch.relu(self.feat_conv_3x3(self.backbone(ims)[-1]))
 
     def long_term_aggregate(self, fresh_feat, old_feat, img_cur, img_old):
         """FlowNet warp of the previous key feature, fused with the fresh
@@ -172,33 +138,6 @@ class LSFA(nn.Module):
             fused = self.small_fuse(fused, small_feat)
         return fused
 
-    def rpn_fg_probs(self, cls_logits):
-        """Per-anchor fg probability from NHWC [bg A | fg A] logits."""
-        a = self.num_anchors
-        pair = torch.stack([cls_logits[..., :a], cls_logits[..., a:]], dim=-1)
-        return torch.softmax(pair, dim=-1)[..., 1]
-
-    def rpn_decode_deltas(self, deltas):
-        """Un-normalize NHWC RPN deltas."""
-        if not self.normalize_rpn:
-            return deltas
-        return deltas * self.rpn_stds + self.rpn_means
-
-    def _heads(self, feat):
-        """NCHW float32 feature -> the output dict (NHWC). RPN heads return
-        float32; the R-FCN maps stay in the compute dtype."""
-        half = self.feat_dim // 2
-        rpn_feat, rfcn_feat = feat[:, :half], feat[:, half:]
-        rpn_cls = _nhwc(self.rpn_cls_score(rpn_feat).float())
-        rpn_bbox = _nhwc(self.rpn_bbox_pred(rpn_feat).float())
-        return {
-            "feat": _nhwc(feat),
-            "rpn_fg": self.rpn_fg_probs(rpn_cls),
-            "rpn_deltas": self.rpn_decode_deltas(rpn_bbox),
-            "rfcn_cls_map": _nhwc(self.rfcn_cls(rfcn_feat)),
-            "rfcn_bbox_map": _nhwc(self.rfcn_bbox(rfcn_feat)),
-        }
-
     # ------- phase graphs -------
 
     def forward_key(self, data, data_key_old, feat_key_old, is_first):
@@ -215,7 +154,7 @@ class LSFA(nn.Module):
         prop = self.long_term_aggregate(fresh, old, x, _nchw(data_key_old))
         # the key-feature carry is float32 by design
         feat = torch.where(first, fresh, prop).float()
-        out = self._heads(feat)
+        out = self.detection_maps(feat)
         out["prep"] = data
         return out
 
@@ -226,7 +165,7 @@ class LSFA(nn.Module):
         feat = self.short_term_propagate(
             _nchw(feat_key), _nchw(motion_vector), _nchw(res_diff),
             _nchw(self.preprocess(small_img)))
-        return self._heads(feat)
+        return self.detection_maps(feat)
 
     def forward_train(self, data, data_ref, data_ref_old, eq_flag, eq_flag_old,
                       motion_vector, res_diff):
@@ -238,11 +177,9 @@ class LSFA(nn.Module):
 
         Returns NHWC rpn_cls [bg A | fg A] logits and rpn_bbox deltas as
         raw float32 head outputs, the R-FCN maps in the compute dtype, and
-        the key and selected features."""
-        if ((self.add_rnet and self.rnet.bn is not None)
-                or (self.add_small_net and self.small_fuse.cur_feat_bn is not None)):
-            raise NotImplementedError(
-                "train-mode BatchNorm (res_diff_bn, small_net_bn_before_fuse) is not ported yet")
+        the key and selected features. In training mode the R-net's and the
+        fusion's BatchNorms (res_diff_bn, small_net_bn_before_fuse)
+        normalize with batch statistics and update their running ones."""
         b = data.shape[0]
         x_cur = _nchw(self.preprocess(data))
         x_ref = _nchw(self.preprocess(data_ref))
@@ -261,16 +198,7 @@ class LSFA(nn.Module):
                                              _nchw(res_diff), small)
         # key frames train the key path directly
         sel = torch.where((eq_flag > 0).reshape(b, 1, 1, 1), key_feat, cur_feat)
-        half = self.feat_dim // 2
-        rpn_feat, rfcn_feat = sel[:, :half], sel[:, half:]
-        return {
-            "rpn_cls": _nhwc(self.rpn_cls_score(rpn_feat).float()),
-            "rpn_bbox": _nhwc(self.rpn_bbox_pred(rpn_feat).float()),
-            "rfcn_cls_map": _nhwc(self.rfcn_cls(rfcn_feat)),
-            "rfcn_bbox_map": _nhwc(self.rfcn_bbox(rfcn_feat)),
-            "key_feat": _nhwc(key_feat),
-            "sel_feat": _nhwc(sel),
-        }
+        return {**self.head_maps(sel), "key_feat": _nhwc(key_feat), "sel_feat": _nhwc(sel)}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -351,7 +279,7 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
                 m.bias.fill_(1.0 if m.init == "scale_map" else 0.0)
         elif isinstance(m, DeformConv2d):
             fan_in_normal(m.weight, 2.0, m.weight[0].numel())
-        elif isinstance(m, FrozenBN):
+        elif isinstance(m, FrozenBN):            # the train-mode BatchNorm too
             if m.weight is not None:
                 m.weight.fill_(1.0)
             m.bias.zero_()

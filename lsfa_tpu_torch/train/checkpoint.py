@@ -54,7 +54,8 @@ def load_checkpoint(path: str, epoch: int | None = None):
 def seed_small_net(state: dict) -> dict:
     """Copy main-backbone weights into the small-net trunk wherever names
     and shapes match. As in the JAX package only parameters are copied,
-    not BatchNorm running statistics. Returns a new state dict."""
+    not BatchNorm running statistics; a state dict with no small-net trunk
+    (the R-FCN's) comes back unchanged. Returns a new state dict."""
     out = dict(state)
     src, dst = "backbone.", "small_net_backbone."
     for key in state:

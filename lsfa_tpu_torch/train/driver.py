@@ -1,8 +1,9 @@
 """The training driver on one device; the counterpart of
 ``lsfa_tpu.train.driver``.
 
-`init_model` builds the LSFA module from the config with random weights
-from a seed and seeds the small-net trunk from the backbone. `train_net`
+`init_model` builds the config's model (LSFA, or the single-frame R-FCN
+for an ``rfcn*`` symbol) with random weights from a seed and seeds the
+small-net trunk from the backbone. `train_net`
 runs the recipe (SGD with the warm-up multi-factor schedule, per-epoch
 checkpoints, resume) over an iterable of collated host batches
 (``data.loader.collate_train_batch`` or ``synthetic_train_batches``).
@@ -16,21 +17,28 @@ import time
 import torch
 
 from lsfa_tpu_torch.data.loader import batch_to_device
+from lsfa_tpu_torch.eval.rfcn_tester import rfcn_from_config
 from lsfa_tpu_torch.models.lsfa import init_params, lsfa_from_config, resolve_device
 from lsfa_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint, seed_small_net
 from lsfa_tpu_torch.train.schedule import make_optimizer
-from lsfa_tpu_torch.train.train_step import TrainSettings, draw_uniforms, make_train_step
+from lsfa_tpu_torch.train.train_step import (
+    TrainSettings, draw_uniforms, make_rfcn_train_step, make_train_step)
+
+
+def is_rfcn(cfg) -> bool:
+    """Single-frame baseline configs (the reference's rfcn/ package) are
+    selected by the symbol name."""
+    return str(cfg.symbol).startswith("rfcn")
 
 
 def init_model(cfg, rng_seed: int = 0, device=None, logger=None):
-    """The LSFA module of `cfg` on `device` (the card when None; raises
-    without one unless device="cpu"), weights drawn from a generator
-    seeded with rng_seed on that device, small-net trunk seeded from the
-    backbone. Pretrained files (network.pretrained, pretrained_flow,
-    pretrained_detector) are not read: warm starts from MXNet .params and
-    flax checkpoints are not ported."""
-    if str(cfg.symbol).startswith("rfcn"):
-        raise NotImplementedError("the single-frame R-FCN model is not ported yet")
+    """The model of `cfg` (`RFCN` when `is_rfcn`, else `LSFA`) on
+    `device` (the card when None; raises without one unless
+    device="cpu"), weights drawn from a generator seeded with rng_seed on
+    that device, small-net trunk seeded from the backbone. Pretrained
+    files (network.pretrained, pretrained_flow, pretrained_detector) are
+    not read: warm starts from MXNet .params and flax checkpoints are not
+    ported."""
     if str(cfg.tpu.param_dtype) != "float32":
         raise NotImplementedError("parameters are float32 in the port")
     for key in ("pretrained", "pretrained_flow", "pretrained_detector"):
@@ -38,7 +46,7 @@ def init_model(cfg, rng_seed: int = 0, device=None, logger=None):
         if name and logger is not None:
             logger.warning(f"network.{key}={name!r} is not loaded: warm starts are not ported")
     device = resolve_device(device)
-    model = lsfa_from_config(cfg, device=device)
+    model = (rfcn_from_config if is_rfcn(cfg) else lsfa_from_config)(cfg, device=device)
     init_params(model, torch.Generator(device=device).manual_seed(rng_seed))
     model.load_state_dict(seed_small_net(model.state_dict()))
     return model
@@ -82,7 +90,8 @@ def train_net(cfg, batches, ckpt_dir: str | None = None, logger=None,
         logger.info(f"resumed from epoch {begin_epoch}, step {step_count}")
 
     settings = TrainSettings.from_config(cfg)
-    train_step = make_train_step(model, settings, optimizer, scheduler)
+    make_step = make_rfcn_train_step if is_rfcn(cfg) else make_train_step
+    train_step = make_step(model, settings, optimizer, scheduler)
 
     steps_run, data_wait = 0, 0.0
     t_start = time.perf_counter()

@@ -36,8 +36,9 @@ def warmup_multifactor(base_lr: float, steps: Sequence[int], factor: float = 0.1
 
 def frozen_names(model: nn.Module) -> set:
     """Names of the parameters FIXED_PARAMS freezes: every BatchNorm's
-    scale and bias (bn_data included), and the main backbone's stem
-    (conv0, bn0) and stage 1."""
+    scale and bias (bn_data and the train-mode BatchNorm, a FrozenBN
+    subclass, included), and the main backbone's stem (conv0, bn0) and
+    stage 1."""
     names = set()
     for mod_name, mod in model.named_modules():
         if isinstance(mod, FrozenBN):

@@ -1,10 +1,11 @@
 """The end-to-end LSFA training step; the counterpart of
 ``lsfa_tpu.train.train_step``.
 
-From the head maps of `LSFA.forward_train` to the four losses: anchor
-assignment and RPN losses, proposals from the detached RPN outputs (on a
-card the RPN NMS fixpoint runs in the ``nms_sweep`` kernel), roi targets,
-PSROI mean-pooled scores, OHEM on detached scores, and the R-FCN losses.
+From the head maps of `LSFA.forward_train` (or of `RFCN`, in
+`make_rfcn_train_step`) to the four losses: anchor assignment and RPN
+losses, proposals from the detached RPN outputs (on a card the RPN NMS
+fixpoint runs in the ``nms_sweep`` kernel), roi targets, PSROI
+mean-pooled scores, OHEM on detached scores, and the R-FCN losses.
 Everything stays on the device: the step reaches no ``.item()``,
 ``nonzero`` or host-built tensor, so it is enqueued without waiting.
 
@@ -136,9 +137,12 @@ class DeviceConstants:
 
 def draw_uniforms(s: TrainSettings, batch, generator: torch.Generator) -> dict:
     """The step's uniform draws on the generator's device: rpn_fg, rpn_bg
-    (B, H*W*A) for anchor subsampling and, when batch_rois > 0, roi_fg,
-    roi_bg, roi_gap (B, post_nms_top_n + max_gt) for roi sampling."""
-    b, fh, fw = batch["motion_vector"].shape[:3]
+    (B, H*W*A) for anchor subsampling over the feature map of data's
+    bucket (H, W = its size // feat_stride) and, when batch_rois > 0,
+    roi_fg, roi_bg, roi_gap (B, post_nms_top_n + max_gt) for roi
+    sampling."""
+    b, h, w = batch["data"].shape[:3]
+    fh, fw = h // s.feat_stride, w // s.feat_stride
     dev = generator.device
 
     def u(n):
@@ -220,21 +224,14 @@ def detection_losses(out, batch, consts: DeviceConstants, draws: dict, s: TrainS
     return sum(losses.values()), metrics
 
 
-def make_train_step(model, settings: TrainSettings, optimizer, scheduler=None):
-    """Build step(batch, draws) -> metric dict (device scalars): forward,
-    losses, backward, one optimizer step and one scheduler step. `batch`
-    holds device tensors (``data.loader.batch_to_device``); `draws` comes
-    from `draw_uniforms` or a test."""
-    device = next(model.parameters()).device
-    consts = DeviceConstants(settings, device)
+def _make_step(model, settings: TrainSettings, optimizer, scheduler, forward):
+    """step(batch, draws) around forward(batch) -> the head maps."""
+    consts = DeviceConstants(settings, next(model.parameters()).device)
 
     def train_step(batch, draws):
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        out = model.forward_train(
-            batch["data"], batch["data_ref"], batch["data_ref_old"], batch["eq_flag"],
-            batch["eq_flag_old"], batch["motion_vector"], batch["res_diff"])
-        total, metrics = detection_losses(out, batch, consts, draws, settings)
+        total, metrics = detection_losses(forward(batch), batch, consts, draws, settings)
         total.backward()
         optimizer.step()
         if scheduler is not None:
@@ -243,3 +240,22 @@ def make_train_step(model, settings: TrainSettings, optimizer, scheduler=None):
         return metrics
 
     return train_step
+
+
+def make_train_step(model, settings: TrainSettings, optimizer, scheduler=None):
+    """Build step(batch, draws) -> metric dict (device scalars) for LSFA:
+    `forward_train`, losses, backward, one optimizer step and one
+    scheduler step. `batch` holds device tensors
+    (``data.loader.batch_to_device``); `draws` comes from `draw_uniforms`
+    or a test. The model runs in training mode, so its train-mode
+    BatchNorms update their running statistics."""
+    return _make_step(model, settings, optimizer, scheduler, lambda b: model.forward_train(
+        b["data"], b["data_ref"], b["data_ref_old"], b["eq_flag"], b["eq_flag_old"],
+        b["motion_vector"], b["res_diff"]))
+
+
+def make_rfcn_train_step(model, settings: TrainSettings, optimizer, scheduler=None):
+    """The step of `make_train_step` for the single-frame R-FCN: the same
+    losses and update on the forward of batch["data"] alone (a train batch's
+    reference frames, motion vectors and residuals are not read)."""
+    return _make_step(model, settings, optimizer, scheduler, lambda b: model(b["data"]))

@@ -394,12 +394,26 @@ def test_forward_train_matches_jax(tiny, lt):
 
 
 def test_forward_train_refuses_train_mode_bn():
-    for ov in ({"res_diff_bn": True}, {"small_net_bn_before_fuse": True}):
+    """forward_train refuses none of the train-mode BatchNorm variants: in
+    training mode a forward moves the running statistics of exactly the
+    variant's BatchNorms; in eval mode it moves none."""
+    rng = np.random.default_rng(4)
+    batch = collate_train_batch([synthetic_sample(rng, (60, 90), 5, 2, 0.0, 0.0)], (H, W))
+    args = [t(batch[k]) for k in ("data", "data_ref", "data_ref_old", "eq_flag",
+                                  "eq_flag_old", "motion_vector", "res_diff")]
+    for ov, moving in (({"res_diff_bn": True}, {"rnet.bn"}),
+                       ({"small_net_bn_before_fuse": True},
+                        {"small_fuse.cur_feat_bn", "small_fuse.warp_conv_feat_bn"})):
         tm = lsfa_from_config(load_config(CONFIG, overrides={"network": ov}), device="cpu")
-        d = torch.zeros(1, H, W, 3)
-        with pytest.raises(NotImplementedError):
-            tm.forward_train(d, d, d, torch.zeros(1), torch.zeros(1),
-                             torch.zeros(1, FH, FW, 2), torch.zeros(1, FH, FW, 3))
+        init_params(tm, torch.Generator().manual_seed(0))
+        for train in (False, True):
+            before = {k: x.clone() for k, x in tm.state_dict().items()}
+            tm.train(train)
+            out = tm.forward_train(*args)
+            assert all(bool(torch.isfinite(x).all()) for x in out.values())
+            moved = {k.rsplit(".", 1)[0] for k, x in tm.state_dict().items()
+                     if not torch.equal(x, before[k])}
+            assert moved == (moving if train else set()), (ov, train, moved)
 
 
 def test_seed_small_net_and_combine_match_jax(tiny):
