@@ -18,12 +18,13 @@ Phases, each printing one line before the last:
   4. main path: the flagship LSFA (ResNet-101 with DCN, FlowNet-S, Nq-net,
      R-net, small net) at full width, random weights from a seed, bf16,
      through StreamingDetector over 3 GOPs (36 frames) of seeded I420
-     payloads at the 608x1024 bucket; checks detection shapes and
+     payloads (SyntheticPreparedVideo) at the 608x1024 bucket; checks detection shapes and
      finiteness, the float32 carry, that the main path launched the
      kernel 4 times per GOP, and that the kernel's mask equals the plain
      version's on the last key frame's real RPN input;
   5. small-input reference: the tiny config in float32 on the card (with
-     the kernel) against the same weights on the CPU (plain version);
+     the kernel) against the same weights on the CPU (plain version), the
+     float32 convolutions pinned by the package, not by this script;
   6. train path: the flagship at full width (bf16 compute, float32
      parameters), random init from a seed, through train_net over 4 seeded
      synthetic batches at 608x1024 (B = 1, one key pair, 1-10 gt boxes);
@@ -58,7 +59,34 @@ Phases, each printing one line before the last:
  12. scoring: collect_detections and vid_eval over phase 8's detections
      against seeded gt boxes (a finite mAP in [0, 1]), and the gt planted
      as detections (mAP 1.0);
- 13. profiled: the R-FCN frame and train step, host enqueue against wall
+ 13. evaluation loop: the flagship of phase 4 through eval_videos over three
+     SyntheticPreparedVideo records of 36, 36 and 30 frames (open_video
+     given: the card's machine cannot load the native decoder): 102 finite
+     records keyed 0..101, the schedule the loop ran (8 GOPs in windows of
+     at most 2, the 30-frame video's last 6 frames through process_frame,
+     the first with flag 0), 44 kernel launches reckoned again from that
+     schedule, no host sync flagged inside an enqueue; prints frames/s,
+     ms per GOP and per tail frame, and the PhaseTimer summary;
+ 14. multistream: the same records through eval_videos_timeplex(streams=3):
+     the checks of phase 13, detections equal to eval_videos' (labels and
+     valid rows equal, scores within 1e-6 relative, boxes within 1e-3),
+     frames/s beside the sequential loop's;
+ 15. a producer's failure: eval_videos_timeplex over a stream whose gop
+     raises on its second window raises that error, and no thread of the
+     call is left alive;
+ 16. R-FCN loop: the full-width R-FCN of phase 8 through eval_videos_rfcn
+     over one 12-frame record of BGR u8 frames: 12 finite records, 24
+     kernel launches, frames/s;
+ 17. the data plane does not pretend: PreparedVideo("missing.mp4") raises
+     the error that names the native library and the FFmpeg libraries it
+     needs (where the library loads: the missing file's error);
+     then vid_eval over phase 13's detections against seeded gt boxes;
+ 18. the float32 pin: torch.backends.cudnn.allow_tf32 is True (torch's
+     default) at the start and at the end, so the float32 parity phases 5,
+     7 and 10 ran against the package's own pin; a float32 Conv of the
+     package on the card agrees with the float64 convolution to float32
+     rounding; the cost of the pin per GOP;
+ 19. profiled: the R-FCN frame and train step, host enqueue against wall
      time, then their device time, kernels per call and top kernels under
      torch.profiler; torch.profiler shows that each phase 3 case's call
      runs one kernel for N <= 2048 and two above, and gives the kernel's
@@ -70,6 +98,7 @@ Then one JSON line for the kernels and, last, the result line. Any failed
 phase exits non-zero before the result line is printed.
 """
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -256,16 +285,20 @@ def device_kernels(fn, reps=1, top=0):
     """Names of the device kernels that `reps` calls of fn() ran and their
     device time per call (us), from torch.profiler; with top > 0 also the
     `top` kernel names (cut to 60 characters) that took the most device
-    time, each with its share."""
+    time, each with its share. A trace that holds no device event at all is
+    taken again, up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(3):       # a window now and then comes back without its device events
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
     total = sum(e.time_range.elapsed_us() for e in events)
     if not top:
         return [e.name for e in events], total / reps
@@ -277,29 +310,16 @@ def device_kernels(fn, reps=1, top=0):
     return [e.name for e in events], total / reps, [(n, us / total) for n, us in ranked]
 
 
-def synth_payloads(rng, n_gops, bucket=BUCKET, content=CONTENT, scale=600 / 576):
-    """Seeded stand-ins for PreparedVideo.gop tuples: I420 u8 frames and
-    1/4 smalls padded with Y=16, U=V=128 past the content, MV (dx, dy)
-    fields of a few cells, residuals, im_info."""
-    bh, bw = bucket
-    ch, cw = content
-    fh, fw = bh // 16, bw // 16
-    out = []
-    for _ in range(n_gops):
-        parts = []
-        for h, w, c_h, c_w in ((bh, bw, ch, cw), (bh // 4, bw // 4, ch // 4, cw // 4)):
-            y = np.full((GOP, h, w), 16, np.uint8)
-            y[:, :c_h, :c_w] = rng.integers(16, 236, (GOP, c_h, c_w), dtype=np.uint8)
-            uv = np.full((2, GOP, h // 2, w // 2), 128, np.uint8)
-            uv[:, :, :c_h // 2, :c_w // 2] = rng.integers(
-                64, 192, (2, GOP, c_h // 2, c_w // 2), dtype=np.uint8)
-            planes = [y, uv[0].reshape(GOP, h // 4, w), uv[1].reshape(GOP, h // 4, w)]
-            parts.append(np.concatenate(planes, axis=1)[..., None])
-        mv = rng.normal(0, 2.0, (GOP, fh, fw, 2)).astype(np.float32)
-        res = rng.normal(0, 10, (GOP, fh, fw, 3)).astype(np.float32)
-        info = np.asarray([ch, cw, scale], np.float32)
-        out.append((parts[0], parts[1], mv, res, info))
-    return out
+def synth_gops(cfg, n_gops, seed, bucket=BUCKET, content=CONTENT, scale=600 / 576):
+    """n_gops seeded stand-ins for PreparedVideo.gop tuples from the port's
+    SyntheticPreparedVideo: I420 u8 key frames and 1/4 smalls padded with
+    Y=16, U=V=128 past the content, MV (dx, dy) fields of a few cells,
+    residuals, im_info."""
+    from lsfa_tpu_torch.data.loader import SyntheticPreparedVideo
+
+    pv = SyntheticPreparedVideo("smoke", cfg, bucket, num_frames=n_gops * GOP, seed=seed,
+                                content_hw=content, im_scale=scale)
+    return [pv.gop(g) for g in range(n_gops)]
 
 
 def spread_heads(model, seed):
@@ -682,8 +702,7 @@ def per_frame_vs_gop(dev):
     from lsfa_tpu_torch.eval.tester import StreamingDetector
 
     tiny, model = tiny_stream_model(dev)
-    payloads = synth_payloads(np.random.default_rng(2), 2, bucket=(64, 112), content=(60, 104),
-                              scale=0.5)
+    payloads = synth_gops(tiny, 2, 2, bucket=(64, 112), content=(60, 104), scale=0.5)
     kd, kv, cd, cv = StreamingDetector(model, tiny, (64, 112)).process_prepared_window(
         payloads, first=True)
     det = StreamingDetector(model, tiny, (64, 112))
@@ -709,22 +728,20 @@ def per_frame_vs_gop(dev):
           f"sorted scores max err {score_err:.2e}")
 
 
-def scoring(outs):
-    """Phase 12: collect_detections and vid_eval over the R-FCN serving
-    detections against seeded gt boxes; the gt planted as detections
-    scores 1.0."""
-    from lsfa_tpu_torch.eval.tester import collect_detections
+def scoring(name, detections):
+    """vid_eval over a detections mapping {frame index -> collect_detections
+    dict} against seeded gt boxes (a finite mAP in [0, 1]); the gt planted
+    as detections scores 1.0."""
     from lsfa_tpu_torch.eval.vid_eval import vid_eval
 
     rng = np.random.default_rng(11)
     annotations = {}
-    for i in range(len(outs)):
+    for i in range(len(detections)):
         n = int(rng.integers(1, 6))
         x1 = rng.uniform(0, 700, n)
         y1 = rng.uniform(0, 400, n)
         boxes = np.stack([x1, y1, x1 + rng.uniform(30, 300, n), y1 + rng.uniform(30, 200, n)], 1)
         annotations[i] = {"labels": rng.integers(1, 31, n), "boxes": boxes.astype(np.float32)}
-    detections = {i: collect_detections(d, v) for i, (d, v) in enumerate(outs)}
     ap = vid_eval(detections, annotations, 31)
     mean_ap = float(np.nanmean(ap))
     check(np.isfinite(mean_ap) and 0.0 <= mean_ap <= 1.0, f"mAP {mean_ap}")
@@ -733,10 +750,291 @@ def scoring(outs):
     planted_ap = vid_eval(planted, annotations, 31)
     check(float(np.nanmean(planted_ap)) == 1.0, f"planted gt scored {planted_ap}")
     n_det = sum(len(d["labels"]) for d in detections.values())
-    print(f"scoring: vid_eval over the 12 R-FCN frames ({n_det} detections) against seeded gt "
+    print(f"scoring: vid_eval over {name} ({n_det} detections) against seeded gt "
           f"({sum(len(a['labels']) for a in annotations.values())} boxes, "
           f"{int(np.isfinite(ap).sum())} classes): mAP {mean_ap:.4f} (random weights); the gt "
           f"planted as detections: mAP {float(np.nanmean(planted_ap)):.4f}")
+
+
+class Lines:
+    """A logger that keeps what the evaluation loops report."""
+
+    def __init__(self):
+        self.lines = []
+
+    def info(self, msg):
+        self.lines.append(msg)
+
+
+@contextlib.contextmanager
+def recorded_schedule(calls):
+    """Context: StreamingDetector.process_prepared_window and process_frame
+    record each call into `calls` as a dict (kind "window" with its GOP
+    count and first flag, or "frame" with its flag; the host's clock at
+    the call's start, its enqueue seconds, and the host syncs flagged
+    inside it, which are counted from the second call on: the first call
+    of a shape may initialize cuDNN)."""
+    import torch
+
+    from lsfa_tpu_torch.eval.tester import StreamingDetector
+
+    def wrap(fn, describe):
+        def call(self, *args, **kw):
+            entry = describe(*args, **kw)
+            entry["t0"] = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                if calls:
+                    torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = fn(self, *args, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            entry["enqueue"] = time.perf_counter() - entry["t0"]
+            entry["syncs"] = sum("synchroniz" in str(w.message) for w in caught)
+            calls.append(entry)
+            return out
+        return call
+
+    window, frame = StreamingDetector.process_prepared_window, StreamingDetector.process_frame
+    StreamingDetector.process_prepared_window = wrap(
+        window, lambda payloads, first=False: {"kind": "window", "gops": len(payloads),
+                                               "first": first})
+    StreamingDetector.process_frame = wrap(
+        frame, lambda *a, flag=None, **kw: {"kind": "frame", "flag": flag})
+    try:
+        yield
+    finally:
+        StreamingDetector.process_prepared_window = window
+        StreamingDetector.process_frame = frame
+
+
+EVAL_LENGTHS = {"synthetic-0": 36, "synthetic-1": 36, "synthetic-2": 30}
+
+
+def eval_records(lengths):
+    """Video records of 960x576 sources (600x1000 inside the 608x1024
+    bucket) for synthetic streams, and the open_video that serves them."""
+    from lsfa_tpu_torch.data.loader import SyntheticPreparedVideo
+
+    roidb = [{"vid_path": name, "video_path": name, "frame_seg_len": n, "height": 576,
+              "width": 960} for name, n in lengths.items()]
+
+    def open_video(path, *args, **kw):
+        return SyntheticPreparedVideo(path, *args, num_frames=lengths[path],
+                                      content_hw=CONTENT, im_scale=600 / 576, **kw)
+
+    return roidb, open_video
+
+
+def check_detections(name, detections, n_frames):
+    check(sorted(detections) == list(range(n_frames)),
+          f"{name}: {len(detections)} detection records, not keyed 0..{n_frames - 1}")
+    for d in detections.values():
+        check(bool(np.isfinite(d["scores"]).all() and np.isfinite(d["boxes"]).all()),
+              f"{name}: non-finite detections")
+    check(sum(len(d["labels"]) for d in detections.values()) > 0, f"{name}: no valid rows")
+
+
+def lsfa_loop(name, loop, model, cfg, nms_cuda, **kw):
+    """One LSFA evaluation loop over the three synthetic records, its
+    schedule recorded. Checks 102 finite records, the schedule (8 GOPs in
+    windows of at most 2, then the 30-frame video's last 6 frames one by
+    one, the first of them with flag 0), the kernel's launches (4 per GOP,
+    2 per frame, reckoned from the calls the loop made), and no host sync
+    inside an enqueue. Returns (detections, launches, the printed line's
+    numbers)."""
+    import torch
+
+    roidb, open_video = eval_records(EVAL_LENGTHS)
+    n_frames = sum(EVAL_LENGTHS.values())
+    log, calls = Lines(), []
+    torch.cuda.synchronize()
+    nms_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with recorded_schedule(calls):
+        detections = loop(model, cfg, roidb, logger=log, open_video=open_video, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = nms_cuda.LAUNCHES
+    check_detections(name, detections, n_frames)
+    windows = [c for c in calls if c["kind"] == "window"]
+    frames = [c for c in calls if c["kind"] == "frame"]
+    check(sorted(c["gops"] for c in windows) == [1, 1, 2, 2, 2] and
+          sum(c["first"] for c in windows) == 3,
+          f"{name}: windows {[(c['gops'], c['first']) for c in windows]}")
+    check([c["flag"] for c in frames] == [0, 2, 2, 2, 2, 2] and calls[-6:] == frames,
+          f"{name}: per-frame flags {[c['flag'] for c in frames]}, not the tail's 0, 2 x 5 last")
+    tail = sorted(k for k in detections)[-6:]
+    check(tail == list(range(n_frames - 6, n_frames)), f"{name}: tail keys {tail}")
+    reckoned = 4 * sum(c["gops"] for c in windows) + 2 * len(frames)
+    check(launches == reckoned == 44,
+          f"{name}: {launches} kernel launches, {reckoned} reckoned from the schedule, not 44")
+    syncs = sum(c["syncs"] for c in calls)
+    check(syncs == 0, f"{name}: {syncs} host syncs flagged inside an enqueue")
+    gop_ms = (frames[0]["t0"] - windows[0]["t0"]) * 1e3 / sum(c["gops"] for c in windows)
+    # the tail: the key frame, the first non-key frame (new shapes to
+    # cuDNN), then four steady non-key frames up to the loop's end
+    stamps = [c["t0"] for c in frames] + [t0 + seconds]
+    frame_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    print(f"{name}: LSFA ResNet-101 bf16 at {BUCKET[0]}x{BUCKET[1]}, 3 synthetic videos of 36, 36 "
+          f"and 30 frames: {n_frames} records in {seconds:.3f} s = {n_frames / seconds:.1f} "
+          f"frames/s; {sum(c['gops'] for c in windows)} GOPs in {len(windows)} windows at "
+          f"{gop_ms:.1f} ms/GOP = {gop_ms / GOP:.2f} ms/frame (enqueue per window ms "
+          f"{[round(c['enqueue'] * 1e3, 1) for c in windows]}), then 6 tail frames one by one, "
+          f"flags 0, 2 x 5, at ms {[round(x, 1) for x in frame_ms]} (the last four mean "
+          f"{statistics.mean(frame_ms[2:]):.2f} ms/frame); nms kernel launches {launches} "
+          f"(4 x 8 GOPs + 2 x 6 frames); host syncs flagged inside an enqueue {syncs}; "
+          f"{log.lines[-1]}")
+    return detections, launches, n_frames / seconds
+
+
+def eval_phases(dev, model, cfg, nms_cuda):
+    """Phases 13-17: eval_videos and eval_videos_timeplex on the flagship,
+    a producer's failure, eval_videos_rfcn on the full-width R-FCN, and
+    the data plane without its library. Returns (eval_videos' detections,
+    launches of the three loops)."""
+    import threading
+
+    import torch
+
+    from lsfa_tpu_torch.config import load_config
+    from lsfa_tpu_torch.data import coviar
+    from lsfa_tpu_torch.data.loader import PreparedVideo, SyntheticPreparedVideo
+    from lsfa_tpu_torch.eval.driver import eval_videos, eval_videos_rfcn, eval_videos_timeplex
+    from lsfa_tpu_torch.eval.rfcn_tester import rfcn_from_config
+    from lsfa_tpu_torch.models.lsfa import init_params
+
+    # 13. the sequential loop
+    seq, seq_launches, seq_fps = lsfa_loop("eval_videos", eval_videos, model, cfg, nms_cuda)
+
+    # 14. three streams in turn through the one detector
+    tp, tp_launches, tp_fps = lsfa_loop("eval_videos_timeplex(streams=3)", eval_videos_timeplex,
+                                        model, cfg, nms_cuda, streams=3)
+    worst = {"scores": 0.0, "boxes": 0.0}
+    for k in seq:
+        check(np.array_equal(seq[k]["labels"], tp[k]["labels"]),
+              f"timeplex: labels or valid rows of frame {k} differ from eval_videos")
+        for f, tol in (("scores", dict(rtol=1e-6, atol=0.0)), ("boxes", dict(rtol=1e-5, atol=1e-3))):
+            check(np.allclose(tp[k][f], seq[k][f], **tol),
+                  f"timeplex: {f} of frame {k} differ from eval_videos by "
+                  f"{np.abs(tp[k][f] - seq[k][f]).max()}")
+            if len(seq[k][f]):
+                worst[f] = max(worst[f], float(np.abs(tp[k][f] - seq[k][f]).max()))
+    print(f"eval_videos_timeplex(streams=3): detections equal eval_videos' (labels and valid "
+          f"rows equal; max abs difference scores {worst['scores']:.2e}, boxes "
+          f"{worst['boxes']:.2e}); {tp_fps:.1f} frames/s against {seq_fps:.1f} sequential")
+
+    # 15. a producer's failure surfaces, and no producer outlives the call
+    class FailingVideo(SyntheticPreparedVideo):
+        def gop(self, gop_idx):
+            if gop_idx >= 2:                 # the second window of two GOPs
+                raise RuntimeError("planted decode failure")
+            return super().gop(gop_idx)
+
+    roidb, _ = eval_records(EVAL_LENGTHS)
+    before = set(threading.enumerate())
+    raised = None
+    try:
+        eval_videos_timeplex(
+            model, cfg, roidb, streams=3, logger=Lines(),
+            open_video=lambda path, *a, **kw: FailingVideo(
+                path, *a, num_frames=EVAL_LENGTHS[path], content_hw=CONTENT, **kw))
+    except RuntimeError as e:
+        raised = str(e)
+    check(raised == "planted decode failure",
+          f"eval_videos_timeplex did not raise the producer's error (got {raised!r})")
+    left = [t.name for t in set(threading.enumerate()) - before if t.is_alive()]
+    check(not left, f"threads left alive after the producer's failure: {left}")
+    torch.cuda.synchronize()
+    print("producer failure: eval_videos_timeplex raised the planted error of a stream's second "
+          "window; no thread of the call is left alive")
+
+    # 16. the R-FCN loop at full width
+    rcfg = load_config(None, overrides=RFCN_OVERRIDES)
+    rfcn = rfcn_from_config(rcfg, device=dev)
+    init_params(rfcn, torch.Generator(device=dev).manual_seed(0))
+    roidb, open_video = eval_records({"synthetic-rfcn": 12})
+    log = Lines()
+    eval_videos_rfcn(rfcn, rcfg, roidb, logger=Lines(), open_video=open_video, max_frames=2)
+    torch.cuda.synchronize()
+    nms_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    dets = eval_videos_rfcn(rfcn, rcfg, roidb, logger=log, open_video=open_video)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    rfcn_launches = nms_cuda.LAUNCHES
+    check_detections("eval_videos_rfcn", dets, 12)
+    check(rfcn_launches == 24, f"eval_videos_rfcn: {rfcn_launches} kernel launches, not 2 x 12")
+    print(f"eval_videos_rfcn: R-FCN ResNet-101 bf16 at {BUCKET[0]}x{BUCKET[1]}, one synthetic "
+          f"video of 12 BGR frames (after a 2-frame warm-up call): 12 records in {seconds:.3f} s "
+          f"= {12 / seconds:.1f} frames/s ({seconds / 12 * 1e3:.2f} ms/frame); nms kernel "
+          f"launches {rfcn_launches} (2 per frame); {log.lines[-1]}")
+    del rfcn
+
+    # 17. the data plane does not pretend
+    try:
+        got = PreparedVideo("missing.mp4", cfg, BUCKET)
+        fail(f"PreparedVideo('missing.mp4') returned {got!r}")
+    except (RuntimeError, OSError) as e:
+        if coviar.available():
+            check(isinstance(e, OSError) and "missing.mp4" in str(e), f"PreparedVideo raised {e!r}")
+        else:
+            check(str(e) == coviar.MISSING and "libcoviar_tpu.so" in str(e)
+                  and "libavcodec" in str(e), f"PreparedVideo raised {e!r}")
+        print(f"data plane: coviar.available() is {coviar.available()}; "
+              f"PreparedVideo('missing.mp4') raised {type(e).__name__}: {e}")
+    return seq, {"eval_videos": seq_launches, "eval_timeplex": tp_launches,
+                 "eval_rfcn": rfcn_launches}
+
+
+def float32_pin(dev, det, payloads):
+    """Phase 18, the package's float32 pin: under torch's default flag a
+    float32 Conv of the package on the card agrees with the float64
+    convolution to float32 rounding (2e-5 of the largest output), where
+    the same call without the pin is printed beside it; the cost of
+    entering the pin on this host, and how often a flagship GOP enters it."""
+    import torch
+    import torch.nn.functional as F
+
+    from lsfa_tpu_torch.models import layers
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    conv = layers.Conv(256, 256, 3, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        conv.weight.normal_(0, 0.05, generator=g)
+        conv.bias.zero_()
+        x = torch.randn(1, 256, 38, 64, device=dev, generator=g)
+        exact = F.conv2d(x.double(), conv.weight.double(), None, padding=1)
+        pinned_err = float((conv(x) - exact).abs().max())
+        default_err = float((F.conv2d(x, conv.weight, None, padding=1) - exact).abs().max())
+    top = float(exact.abs().max())
+    check(pinned_err <= 2e-5 * top,
+          f"the package's float32 Conv is {pinned_err:.2e} from float64 (outputs up to {top:.1f})")
+    entered = [0]
+    pin = layers.full_float32
+
+    def counting():
+        entered[0] += 1
+        return pin()
+
+    layers.full_float32 = counting
+    try:
+        det.process_prepared_window(payloads[:1])
+    finally:
+        layers.full_float32 = pin
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        with pin():
+            pass
+    each = (time.perf_counter() - t0) / 1000
+    print(f"float32 pin: a float32 3x3 Conv(256, 256) at 38x64 under torch's default flag is "
+          f"{pinned_err:.2e} from the float64 convolution (max abs, outputs up to {top:.1f}; "
+          f"limit 2e-5 of that); the same call without the pin is {default_err:.2e} from it; "
+          f"entering the pin costs {each * 1e6:.2f} us on this "
+          f"host (mean of 1000), a flagship GOP enters it {entered[0]} times = "
+          f"{entered[0] * each * 1e3:.3f} ms per GOP")
 
 
 def tiny_stream_model(dev):
@@ -775,9 +1073,11 @@ def main():
     from lsfa_tpu_torch.ops.proposal import proposal_candidates
 
     dev = torch.device("cuda", 0)
-    # float32 convs (the DCN offset convs) and matmuls stay full float32
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    # torch's default: cuDNN convolutions may run in TF32. The package pins
+    # its float32 convolutions itself, so every float32 parity phase below
+    # runs against that pin; the flag is checked again at the end
+    check(torch.backends.cudnn.allow_tf32 is True,
+          "torch.backends.cudnn.allow_tf32 is not torch's default (True) at the start")
 
     # 1. environment
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -785,7 +1085,8 @@ def main():
                          check=True).stdout.strip().splitlines()[0]
     print(f"env: python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}, "
-          f"cudnn.allow_tf32=False, matmul.allow_tf32=False")
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} (the package pins its float32 "
+          f"convolutions), matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     print(smi)
 
     # 2. build
@@ -838,10 +1139,10 @@ def main():
     model = lsfa_from_config(cfg, device=dev)
     init_params(model, torch.Generator(device=dev).manual_seed(0))
     det = StreamingDetector(model, cfg, BUCKET)
-    payloads = synth_payloads(np.random.default_rng(1), 3)
+    payloads = synth_gops(cfg, 3, 1)
     torch.cuda.synchronize()
     nms_cuda.LAUNCHES = 0
-    gop_s = []
+    gop_s, gop_enqueue = [], []
     syncs = 0
     outs = []
     for g, p in enumerate(payloads):
@@ -853,6 +1154,7 @@ def main():
             torch.cuda.set_sync_debug_mode("warn")
             out = det.process_prepared_window([p], first=(g == 0))
             torch.cuda.set_sync_debug_mode("default")
+        gop_enqueue.append(time.perf_counter() - t0)
         torch.cuda.synchronize()
         gop_s.append(time.perf_counter() - t0)
         if g > 0:                       # the warm-up GOP initializes cuDNN/cuBLAS
@@ -874,7 +1176,8 @@ def main():
     print(f"main path: LSFA ResNet-101 bf16 at {BUCKET[0]}x{BUCKET[1]}, 3 GOPs = "
           f"{3 * GOP} frames; per-GOP wall s {[round(s, 4) for s in gop_s]} "
           f"(first includes warm-up); after warm-up {statistics.mean(steady) * 1e3:.1f} "
-          f"ms/GOP = {GOP / statistics.mean(steady):.1f} frames/s; "
+          f"ms/GOP = {GOP / statistics.mean(steady):.1f} frames/s, of it host enqueue "
+          f"{statistics.mean(gop_enqueue[1:]) * 1e3:.1f} ms/GOP; "
           f"nms kernel launches {launches}; host syncs flagged after warm-up {syncs}; "
           f"valid detections/frame {int(outs[-1][1].sum())}, "
           f"{int(outs[-1][3].sum()) // (GOP - 1)} (key, non-key mean)")
@@ -901,8 +1204,7 @@ def main():
     tiny, cpu_model = tiny_stream_model("cpu")
     gpu_model = lsfa_from_config(tiny, device=dev)
     gpu_model.load_state_dict(cpu_model.state_dict())
-    small = synth_payloads(np.random.default_rng(2), 2, bucket=(64, 112), content=(60, 104),
-                           scale=0.5)
+    small = synth_gops(tiny, 2, 2, bucket=(64, 112), content=(60, 104), scale=0.5)
     ref_det = StreamingDetector(cpu_model, tiny, (64, 112))
     card_det = StreamingDetector(gpu_model, tiny, (64, 112))
     ref = ref_det.process_prepared_window(small, first=True)
@@ -925,11 +1227,20 @@ def main():
     rfcn_launches, rfcn_err = rfcn_training(dev, nms_cuda, greedy_alive)
     bn_launches, bn_err = bn_training(dev, nms_cuda, greedy_alive)
     per_frame_vs_gop(dev)
-    scoring(serve_outs)
+    from lsfa_tpu_torch.eval.tester import collect_detections
+    scoring("the 12 R-FCN frames of phase 8",
+            {i: collect_detections(d, v) for i, (d, v) in enumerate(serve_outs)})
     max_err = max(max_err, train_err, serve_err, rfcn_err, bn_err)
 
-    # 13. launches and device time by torch.profiler, last: after a profiled
-    # window the host's launches stay slower, which would bias phases 3-12
+    # 13-18: the evaluation loops over synthetic streams, and the float32 pin
+    eval_dets, eval_launches = eval_phases(dev, model, cfg, nms_cuda)
+    scoring("eval_videos' 102 flagship frames", eval_dets)
+    float32_pin(dev, det, payloads)
+    check(torch.backends.cudnn.allow_tf32 is True,
+          "torch.backends.cudnn.allow_tf32 was left changed by the package")
+
+    # 19. launches and device time by torch.profiler, last: after a profiled
+    # window the host's launches stay slower, which would bias phases 3-18
     rfcn_account(dev)
     timed = iter(shapes)
     for name, b, v, thresh, sweeps, is_timed in checked:
@@ -954,13 +1265,14 @@ def main():
         "name": "nms_sweep", "route": "cuda",
         "source": "lsfa_tpu_torch/csrc/nms_sweep.cu",
         "replaces": "lsfa_tpu/ops/pallas_nms.py:97",
-        "launches": launches + train_launches + serve_launches + rfcn_launches + bn_launches,
+        "launches": (launches + train_launches + serve_launches + rfcn_launches + bn_launches
+                     + sum(eval_launches.values())),
         "max_abs_err": max_err,
         "ms": rpn["us"] / 1e3, "plain_ms": rpn["plain_us"] / 1e3,
         "bound_ms": rpn["bound_us"] / 1e3, "bound_by": rpn["bound_by"], "library_ms": None,
         "launches_by_path": {"streaming": launches, "train": train_launches,
                              "rfcn_serve": serve_launches, "rfcn_train": rfcn_launches,
-                             "train_bn": bn_launches},
+                             "train_bn": bn_launches, **eval_launches},
         "shapes": shapes}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

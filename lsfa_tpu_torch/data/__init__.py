@@ -1,1 +1,2 @@
-"""Host-side batch assembly for training."""
+"""The host-side data plane: the native compressed-video decoder's binding,
+per-video payloads, evaluation and training batch assembly, datasets."""

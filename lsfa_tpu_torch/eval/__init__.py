@@ -1,1 +1,2 @@
-"""Streaming inference and detection post-processing."""
+"""Streaming inference, detection post-processing, the evaluation loops
+over videos and VID scoring."""

@@ -9,9 +9,16 @@ statistics in training mode.
 
 Each conv carries the name of its initializer (`init`), which
 ``models/lsfa.py::init_params`` reads to draw weights without JAX.
+
+A float32 convolution (every conv of a float32 config, and the DCN offset
+convs of any config) runs in full float32: on a card torch's default for
+cuDNN convolutions is TF32 (10 mantissa bits), so `Conv` and `Deconv2x`
+enter `full_float32` around a float32 call. Nothing is set at import.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -19,6 +26,25 @@ from torch import nn
 
 BN_EPS = 2e-5
 BN_MOMENTUM = 0.9
+
+
+@contextlib.contextmanager
+def full_float32():
+    """Convolutions inside run in full float32, not TF32: clears
+    ``torch.backends.cudnn.allow_tf32`` and restores the caller's setting
+    on exit. The flag is process-wide, so convolutions that other threads
+    enqueue meanwhile see it too."""
+    allowed = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = allowed
+
+
+def _precision(dtype):
+    """The context a convolution computing in `dtype` runs under."""
+    return full_float32() if dtype is torch.float32 else contextlib.nullcontext()
 
 
 def mx_pad(kernel: int, dilate: int = 1) -> int:
@@ -46,7 +72,8 @@ class Conv(nn.Conv2d):
     def forward(self, x):
         d = self.dtype
         bias = None if self.bias is None else self.bias.to(d)
-        return self._conv_forward(x.to(d), self.weight.to(d), bias)
+        with _precision(d):
+            return self._conv_forward(x.to(d), self.weight.to(d), bias)
 
 
 class Deconv2x(nn.ConvTranspose2d):
@@ -61,7 +88,8 @@ class Deconv2x(nn.ConvTranspose2d):
 
     def forward(self, x):
         d = self.dtype
-        y = F.conv_transpose2d(x.to(d), self.weight.to(d), self.bias.to(d), stride=2)
+        with _precision(d):
+            y = F.conv_transpose2d(x.to(d), self.weight.to(d), self.bias.to(d), stride=2)
         return y[..., 1:-1, 1:-1]
 
 

@@ -20,6 +20,7 @@ import dataclasses
 
 import torch
 
+from lsfa_tpu_torch.models.layers import full_float32
 from lsfa_tpu_torch.ops.anchors import anchor_grid
 from lsfa_tpu_torch.ops.proposal import rpn_proposals
 from lsfa_tpu_torch.ops.psroi_pool import psroi_pool
@@ -232,7 +233,8 @@ def _make_step(model, settings: TrainSettings, optimizer, scheduler, forward):
         model.train()
         optimizer.zero_grad(set_to_none=True)
         total, metrics = detection_losses(forward(batch), batch, consts, draws, settings)
-        total.backward()
+        with full_float32():     # the float32 convs' backward reads the flag when it runs
+            total.backward()
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
