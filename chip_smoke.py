@@ -86,7 +86,31 @@ Phases, each printing one line before the last:
      7 and 10 ran against the package's own pin; a float32 Conv of the
      package on the card agrees with the float64 convolution to float32
      rounding; the cost of the pin per GOP;
- 19. profiled: the R-FCN frame and train step, host enqueue against wall
+ 19. reference weights: the flagship LSFA and the R-FCN of
+     rfcn_resnet101_vid.json at full width, seeded weights with every entry
+     moved (`distinct_weights`), through export_mxnet_lsfa into .params
+     files, the importer (lsfa_tpu_torch.tools.import_reference_checkpoint)
+     and the launcher's checkpoint load into fresh models on the card: the
+     state dicts equal bit for bit, one GOP of StreamingDetector (LSFA) and
+     two frames of RFCNDetector.detect (R-FCN) give the source's detections
+     (4 and 4 kernel launches), the kernel's mask equals the plain version's
+     on the imported model's RPN input; an R-FCN release with only the baked
+     rfcn_bbox_*_test un-bakes to within 1e-6 relative; prints the file size,
+     the seconds to export, import and load, and the tensor counts;
+ 20. the launcher: experiments.lsfa_test.run_test with
+     lsfa_resnet101_vid.json and phase 19's checkpoint over an ImageNet VID
+     tree the phase writes (ImageSets list, XML annotations; two videos of
+     36 and 30 frames), SyntheticPreparedVideo streams through open_video:
+     a finite mAP in [0, 1], 66 records, 32 kernel launches reckoned from
+     the recorded schedule, frames/s; then streams=2 with equal detections;
+ 21. warm starts: init_model on the flagship with network.pretrained a
+     backbone-only .params at the reference's ImageNet names and
+     pretrained_flow a FlowNet-only one (seeded arrays): the imported
+     tensors equal the files', the small net the warm backbone's; 2 steps
+     of train_net (the checks of phase 6); pretrained_detector from phase
+     19's R-FCN checkpoint transfers the shared stack, and a checkpoint
+     that shares nothing raises;
+ 22. profiled: the R-FCN frame and train step, host enqueue against wall
      time, then their device time, kernels per call and top kernels under
      torch.profiler; torch.profiler shows that each phase 3 case's call
      runs one kernel for N <= 2048 and two above, and gives the kernel's
@@ -103,6 +127,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -113,24 +138,10 @@ REPO = Path(__file__).resolve().parent
 GOP = 12
 BUCKET = (608, 1024)
 CONTENT = (600, 1000)                 # resized frame inside the bucket
-# configs/rfcn_resnet101_vid.yaml as overrides (the card's machine has no
-# yaml); a CPU test holds the two equal
-RFCN_OVERRIDES = {
-    "output_path": "./output/rfcn_tpu/imagenet_vid",
-    "symbol": "rfcn_resnet101",
-    "SCALES": [[600, 1000]],
-    "network": {"pretrained": "resnet-101", "num_layer": 101, "add_dcn": False,
-                "add_small_net": False, "add_Nq_net": False},
-    "dataset": {"dataset": "ImageNetVID", "dataset_path": "./data/ILSVRC2015",
-                "image_set": "DET_train_30classes+VID_train_15frames",
-                "test_image_set": "VID_val_frames", "NUM_CLASSES": 31},
-    "TRAIN": {"lr": 0.00025, "lr_step": "1.333", "end_epoch": 2, "ENABLE_OHEM": True,
-              "BATCH_IMAGES": 1, "BATCH_ROIS": -1, "BATCH_ROIS_OHEM": 128,
-              "RPN_POST_NMS_TOP_N": 300, "RPN_MIN_SIZE": 0},
-    "TEST": {"NMS": 0.3, "RPN_MIN_SIZE": 0, "test_epoch": 2},
-    "tpu": {"compute_dtype": "bfloat16", "default_bucket": [608, 1024],
-            "image_buckets": [[608, 1024], [1024, 608], [608, 960]]},
-}
+# the published configs through their JSON twins (the card's machine has
+# no yaml); a CPU test holds each twin equal to its YAML file
+LSFA_CONFIG = REPO / "lsfa_tpu_torch" / "configs" / "lsfa_resnet101_vid.json"
+RFCN_CONFIG = REPO / "lsfa_tpu_torch" / "configs" / "rfcn_resnet101_vid.json"
 BN_VARIANTS = {"res_diff_bn": True, "small_net_bn_before_fuse": True}
 
 
@@ -308,6 +319,49 @@ def device_kernels(fn, reps=1, top=0):
         by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return [e.name for e in events], total / reps, [(n, us / total) for n, us in ranked]
+
+
+def rpn_masks(out, anchors, info, cfg, nms_cuda, greedy_alive):
+    """The kernel's and the plain version's alive masks on the RPN input
+    that one frame's head outputs `out` give. Returns (kernel's, plain
+    version's, boxes, valid)."""
+    import torch
+
+    from lsfa_tpu_torch.ops.proposal import proposal_candidates
+
+    with torch.no_grad():
+        boxes, _, valid = proposal_candidates(
+            out["rpn_fg"], out["rpn_deltas"], anchors, info, cfg.TEST.RPN_PRE_NMS_TOP_N,
+            cfg.TEST.RPN_MIN_SIZE, cfg.network.RPN_FEAT_STRIDE, cfg.tpu.nms_tier)
+        boxes = boxes.contiguous()
+        got, _ = nms_cuda.greedy_alive_cuda(boxes, valid, cfg.TEST.RPN_NMS_THRESH, 31)
+        want = greedy_alive(boxes, valid, cfg.TEST.RPN_NMS_THRESH, 31)
+    return got, want, boxes, valid
+
+
+def key_rpn_masks(det, state, payload, first, nms_cuda, greedy_alive):
+    """`rpn_masks` on the key frame of GOP `payload`, run by the
+    StreamingDetector `det` from the stream state `state` that preceded it
+    (first: the GOP starts the stream)."""
+    import torch
+
+    feat_key, data_key, _ = state
+    dev = det.device
+    with torch.no_grad():
+        out = det.model.forward_key(torch.from_numpy(payload[0][0:1]).to(dev), data_key,
+                                    feat_key, torch.full((1,), float(first), device=dev))
+    return rpn_masks(out, det.anchors, torch.from_numpy(payload[4][None]).to(dev), det.cfg,
+                     nms_cuda, greedy_alive)
+
+
+def frame_rpn_masks(det, cfg, frame, info, nms_cuda, greedy_alive):
+    """`rpn_masks` on one BGR frame (1, H, W, 3) of the RFCNDetector `det`."""
+    import torch
+
+    with torch.no_grad():
+        out = det.model(torch.from_numpy(frame).to(det.device))
+    return rpn_masks(out, det.anchors, torch.from_numpy(info).to(det.device), cfg, nms_cuda,
+                     greedy_alive)
 
 
 def synth_gops(cfg, n_gops, seed, bucket=BUCKET, content=CONTENT, scale=600 / 576):
@@ -536,9 +590,8 @@ def rfcn_serving(dev, nms_cuda, greedy_alive):
     from lsfa_tpu_torch.config import load_config
     from lsfa_tpu_torch.eval.rfcn_tester import RFCNDetector, rfcn_from_config
     from lsfa_tpu_torch.models.lsfa import init_params
-    from lsfa_tpu_torch.ops.proposal import proposal_candidates
 
-    cfg = load_config(None, overrides=RFCN_OVERRIDES)
+    cfg = load_config(str(RFCN_CONFIG))
     model = rfcn_from_config(cfg, device=dev)
     init_params(model, torch.Generator(device=dev).manual_seed(0))
     det = RFCNDetector(model, cfg, BUCKET)
@@ -574,15 +627,7 @@ def rfcn_serving(dev, nms_cuda, greedy_alive):
         check(bool(torch.isfinite(dets).all()), "non-finite detections")
         check(int(valid.sum()) > 0, "no valid detections")
     # the kernel on the last frame's real RPN input
-    with torch.no_grad():
-        out = model(torch.from_numpy(frames[-1]).to(dev))
-        boxes, _, valid = proposal_candidates(
-            out["rpn_fg"], out["rpn_deltas"], det.anchors, torch.from_numpy(info).to(dev),
-            cfg.TEST.RPN_PRE_NMS_TOP_N, cfg.TEST.RPN_MIN_SIZE, cfg.network.RPN_FEAT_STRIDE,
-            cfg.tpu.nms_tier)
-        boxes = boxes.contiguous()
-        got, _ = nms_cuda.greedy_alive_cuda(boxes, valid, cfg.TEST.RPN_NMS_THRESH, 31)
-        want = greedy_alive(boxes, valid, cfg.TEST.RPN_NMS_THRESH, 31)
+    got, want, boxes, valid = frame_rpn_masks(det, cfg, frames[-1], info, nms_cuda, greedy_alive)
     check(torch.equal(got, want), "kernel != plain on the R-FCN frame's RPN input")
     steady = statistics.mean(wall[1:])
     print(f"R-FCN serving: ResNet-101 bf16 (no DCN) at {BUCKET[0]}x{BUCKET[1]}, 12 frames of "
@@ -601,7 +646,7 @@ def rfcn_training(dev, nms_cuda, greedy_alive):
     from lsfa_tpu_torch.config import load_config
     from lsfa_tpu_torch.train.driver import init_model
 
-    cfg = load_config(None, overrides=RFCN_OVERRIDES)
+    cfg = load_config(str(RFCN_CONFIG))
     model = init_model(cfg, rng_seed=0, device=dev)
     calibrate_input_bn(model)
     r = train_run(cfg, model, 4, nms_cuda, greedy_alive)
@@ -611,7 +656,7 @@ def rfcn_training(dev, nms_cuda, greedy_alive):
 
 
 def rfcn_account(dev):
-    """Phase 13's account of the R-FCN paths on a fresh full-width R-FCN
+    """Phase 22's account of the R-FCN paths on a fresh full-width R-FCN
     (random weights from a seed): per frame of RFCNDetector.detect, then
     per train step of make_rfcn_train_step, the host's enqueue and the wall
     time until synchronized (medians of 5 after a warm-up call), then under
@@ -628,7 +673,7 @@ def rfcn_account(dev):
     from lsfa_tpu_torch.train.train_step import (
         TrainSettings, draw_uniforms, make_rfcn_train_step)
 
-    cfg = load_config(None, overrides=RFCN_OVERRIDES)
+    cfg = load_config(str(RFCN_CONFIG))
     model = init_model(cfg, rng_seed=1, device=dev)
     calibrate_input_bn(model)
     det = RFCNDetector(model, cfg, BUCKET)
@@ -765,6 +810,8 @@ class Lines:
     def info(self, msg):
         self.lines.append(msg)
 
+    warning = info
+
 
 @contextlib.contextmanager
 def recorded_schedule(calls):
@@ -827,6 +874,36 @@ def eval_records(lengths):
     return roidb, open_video
 
 
+def write_vid_tree(dataset_path, lengths, height, width, seed=0):
+    """An ImageNet VID layout under dataset_path for the videos `lengths`
+    {name: frames}: ImageSets/VID_val_videos.txt with one line per video
+    ("val/<name> 1 0 <frames>") and an XML annotation per frame of the
+    given size with 1-3 seeded boxes of the first classes. Returns the
+    test image set's name."""
+    rng = np.random.default_rng(seed)
+    sets = Path(dataset_path) / "ImageSets"
+    sets.mkdir(parents=True, exist_ok=True)
+    (sets / "VID_val_videos.txt").write_text(
+        "".join(f"val/{name} 1 0 {n}\n" for name, n in lengths.items()))
+    wnids = ("n02691156", "n02419796", "n02131653", "n02834778", "n01503061")
+    for name, n in lengths.items():
+        folder = Path(dataset_path) / "Annotations" / "VID" / "val" / name
+        folder.mkdir(parents=True, exist_ok=True)
+        for fid in range(n):
+            objs = ""
+            for _ in range(int(rng.integers(1, 4))):
+                x1, y1 = rng.uniform(0, width * 0.6), rng.uniform(0, height * 0.6)
+                x2 = x1 + rng.uniform(8, width * 0.4)
+                y2 = y1 + rng.uniform(8, height * 0.4)
+                objs += (f"<object><name>{wnids[int(rng.integers(len(wnids)))]}</name><bndbox>"
+                         f"<xmin>{x1:.1f}</xmin><ymin>{y1:.1f}</ymin><xmax>{x2:.1f}</xmax>"
+                         f"<ymax>{y2:.1f}</ymax></bndbox></object>")
+            (folder / f"{fid:06d}.xml").write_text(
+                f"<annotation><size><width>{width}</width><height>{height}</height></size>"
+                f"{objs}</annotation>")
+    return "VID_val_videos"
+
+
 def check_detections(name, detections, n_frames):
     check(sorted(detections) == list(range(n_frames)),
           f"{name}: {len(detections)} detection records, not keyed 0..{n_frames - 1}")
@@ -834,6 +911,23 @@ def check_detections(name, detections, n_frames):
         check(bool(np.isfinite(d["scores"]).all() and np.isfinite(d["boxes"]).all()),
               f"{name}: non-finite detections")
     check(sum(len(d["labels"]) for d in detections.values()) > 0, f"{name}: no valid rows")
+
+
+def same_detections(name, got, want):
+    """Checks two detections mappings equal: the same frames, labels and
+    valid rows, scores within 1e-6 relative, boxes within 1e-3 (+1e-5
+    relative). Returns the largest score and box differences."""
+    check(sorted(got) == sorted(want), f"{name}: frames {len(got)} against {len(want)}")
+    worst = {"scores": 0.0, "boxes": 0.0}
+    for k in want:
+        check(np.array_equal(got[k]["labels"], want[k]["labels"]),
+              f"{name}: labels or valid rows of frame {k} differ")
+        for f, tol in (("scores", dict(rtol=1e-6, atol=0.0)), ("boxes", dict(rtol=1e-5, atol=1e-3))):
+            check(np.allclose(got[k][f], want[k][f], **tol),
+                  f"{name}: {f} of frame {k} differ by {np.abs(got[k][f] - want[k][f]).max()}")
+            if len(want[k][f]):
+                worst[f] = max(worst[f], float(np.abs(got[k][f] - want[k][f]).max()))
+    return worst
 
 
 def lsfa_loop(name, loop, model, cfg, nms_cuda, **kw):
@@ -911,16 +1005,7 @@ def eval_phases(dev, model, cfg, nms_cuda):
     # 14. three streams in turn through the one detector
     tp, tp_launches, tp_fps = lsfa_loop("eval_videos_timeplex(streams=3)", eval_videos_timeplex,
                                         model, cfg, nms_cuda, streams=3)
-    worst = {"scores": 0.0, "boxes": 0.0}
-    for k in seq:
-        check(np.array_equal(seq[k]["labels"], tp[k]["labels"]),
-              f"timeplex: labels or valid rows of frame {k} differ from eval_videos")
-        for f, tol in (("scores", dict(rtol=1e-6, atol=0.0)), ("boxes", dict(rtol=1e-5, atol=1e-3))):
-            check(np.allclose(tp[k][f], seq[k][f], **tol),
-                  f"timeplex: {f} of frame {k} differ from eval_videos by "
-                  f"{np.abs(tp[k][f] - seq[k][f]).max()}")
-            if len(seq[k][f]):
-                worst[f] = max(worst[f], float(np.abs(tp[k][f] - seq[k][f]).max()))
+    worst = same_detections("timeplex", tp, seq)
     print(f"eval_videos_timeplex(streams=3): detections equal eval_videos' (labels and valid "
           f"rows equal; max abs difference scores {worst['scores']:.2e}, boxes "
           f"{worst['boxes']:.2e}); {tp_fps:.1f} frames/s against {seq_fps:.1f} sequential")
@@ -951,7 +1036,7 @@ def eval_phases(dev, model, cfg, nms_cuda):
           "window; no thread of the call is left alive")
 
     # 16. the R-FCN loop at full width
-    rcfg = load_config(None, overrides=RFCN_OVERRIDES)
+    rcfg = load_config(str(RFCN_CONFIG))
     rfcn = rfcn_from_config(rcfg, device=dev)
     init_params(rfcn, torch.Generator(device=dev).manual_seed(0))
     roidb, open_video = eval_records({"synthetic-rfcn": 12})
@@ -1057,6 +1142,381 @@ def tiny_stream_model(dev):
     return tiny, model.to(dev)
 
 
+def distinct_weights(model, seed):
+    """Move every entry of the model's state by seeded noise of a tenth of
+    its mean magnitude (0.01 where it is all zero): BatchNorm statistics,
+    the zero-initialized offset convs and biases included, so that a map
+    that swaps or drops tensors shows. The small net is then seeded from
+    the backbone again, as the importer seeds it."""
+    import torch
+
+    from lsfa_tpu_torch.train.checkpoint import seed_small_net
+
+    g = torch.Generator(device=next(model.parameters()).device).manual_seed(seed)
+    with torch.no_grad():
+        for t in model.state_dict().values():
+            scale = float(t.abs().mean()) or 0.01
+            t.add_((torch.rand(t.shape, generator=g, device=t.device) - 0.5) * 0.2 * scale)
+    model.load_state_dict(seed_small_net(model.state_dict()))
+
+
+def reference_roundtrip(dev, nms_cuda, greedy_alive, tmp):
+    """Phase 19: the flagship LSFA and the R-FCN at full width, from a seed
+    with `distinct_weights`, through export_mxnet_lsfa into a .params
+    file, the importer (tools.import_reference_checkpoint) and the
+    launcher's checkpoint load (experiments.lsfa_test.load_model) into a
+    fresh model on the card: the state dicts equal bit for bit, the
+    detections of one GOP (LSFA) or two frames (R-FCN) equal the
+    source's, and the kernel's mask equals the plain version's on the
+    imported model's RPN input; then an R-FCN release with only the baked
+    rfcn_bbox_*_test un-bakes to within 1e-6 relative of the live
+    weights. Returns ({path: kernel launches}, max abs error of the
+    masks, {"LSFA"/"R-FCN": checkpoint directory})."""
+    import torch
+
+    from lsfa_tpu_torch.config import load_config
+    from lsfa_tpu_torch.eval.rfcn_tester import RFCNDetector
+    from lsfa_tpu_torch.eval.tester import StreamingDetector
+    from lsfa_tpu_torch.experiments.lsfa_test import load_model
+    from lsfa_tpu_torch.tools import import_reference_checkpoint
+    from lsfa_tpu_torch.train.driver import init_model
+    from lsfa_tpu_torch.train.import_mxnet import export_mxnet_lsfa, import_mxnet_lsfa
+
+    launches, err, ckpts = {}, 0.0, {}
+    rng = np.random.default_rng(13)
+    frames = np.zeros((2, 1) + BUCKET + (3,), np.uint8)
+    frames[:, :, :CONTENT[0], :CONTENT[1]] = rng.integers(0, 256, (2, 1) + CONTENT + (3,),
+                                                          dtype=np.uint8)
+    info = np.asarray([[CONTENT[0], CONTENT[1], 600 / 576]], np.float32)
+    for name, cfg_file, strict in (("LSFA", LSFA_CONFIG, "backbone,flownet"),
+                                   ("R-FCN", RFCN_CONFIG, "backbone")):
+        cfg = load_config(str(cfg_file))
+        source = init_model(cfg, rng_seed=11, device=dev)
+        distinct_weights(source, 12)
+        path = tmp / f"{cfg.symbol}-0000.params"
+        t0 = time.perf_counter()
+        flat = export_mxnet_lsfa(source.state_dict(), str(path))
+        export_s = time.perf_counter() - t0
+        ckpts[name] = str(tmp / f"{cfg.symbol}_ckpt")
+        t0 = time.perf_counter()
+        import_reference_checkpoint.main(["--cfg", str(cfg_file), "--params", str(path),
+                                          "--out", ckpts[name], "--strict", strict,
+                                          "--device", str(dev)])
+        tool_s = time.perf_counter() - t0
+        cfg.TEST.test_epoch = 0        # the importer writes epoch 0
+        t0 = time.perf_counter()
+        loaded = load_model(cfg, ckpts[name], logger=Lines(), device=dev)
+        load_s = time.perf_counter() - t0
+        want, got = source.state_dict(), loaded.state_dict()
+        check(got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in want),
+              f"{name}: the imported state dict differs from the source's")
+        torch.cuda.synchronize()
+        if name == "LSFA":
+            payload = synth_gops(cfg, 1, 14, bucket=BUCKET, content=CONTENT)[0]
+            ref_out = StreamingDetector(source, cfg, BUCKET).process_prepared_window(
+                [payload], first=True)
+            det = StreamingDetector(loaded, cfg, BUCKET)
+            state0 = det.get_state()
+            nms_cuda.LAUNCHES = 0
+            out = det.process_prepared_window([payload], first=True)
+            torch.cuda.synchronize()
+            key, n_want = "roundtrip_lsfa", 4
+            launches[key] = nms_cuda.LAUNCHES
+            same = all(torch.equal(a, b) for a, b in zip(out, ref_out))
+            got_m, want_m, boxes, valid = key_rpn_masks(det, state0, payload, True, nms_cuda,
+                                                        greedy_alive)
+            ran = f"1 GOP of StreamingDetector ({int(out[1].sum())} valid key-frame detections)"
+        else:
+            ref = RFCNDetector(source, cfg, BUCKET)
+            ref_out = [ref.detect(f, info) for f in frames]
+            det = RFCNDetector(loaded, cfg, BUCKET)
+            nms_cuda.LAUNCHES = 0
+            out = [det.detect(f, info) for f in frames]
+            torch.cuda.synchronize()
+            key, n_want = "roundtrip_rfcn", 2 * len(frames)
+            launches[key] = nms_cuda.LAUNCHES
+            same = all(torch.equal(a, b) for o, r in zip(out, ref_out) for a, b in zip(o, r))
+            got_m, want_m, boxes, valid = frame_rpn_masks(det, cfg, frames[-1], info, nms_cuda,
+                                                          greedy_alive)
+            ran = (f"{len(frames)} frames of RFCNDetector.detect ({int(out[-1][1].sum())} valid "
+                   f"detections on the last)")
+        check(launches[key] == n_want, f"{name}: {launches[key]} kernel launches, not {n_want}")
+        check(same, f"{name}: the imported model's detections differ from the source's")
+        check(torch.equal(got_m, want_m), f"{name}: kernel != plain on the imported model's RPN "
+                                          f"input")
+        err = max(err, float((got_m.int() - want_m.int()).abs().max()))
+        print(f"reference weights: {name} ({cfg_file.name}) at full width, seeded: "
+              f"export_mxnet_lsfa wrote {len(flat)} tensors "
+              f"({path.stat().st_size / 2**30:.3f} GiB) "
+              f"in {export_s:.2f} s; import_reference_checkpoint read, mapped and wrote epoch 0 in "
+              f"{tool_s:.2f} s; load_model (init_model + the checkpoint) {load_s:.2f} s; "
+              f"{len(want)} state entries equal bit for bit; {ran} equal to the source's, "
+              f"{launches[key]} kernel launches; kernel mask equals plain on the RPN input "
+              f"{tuple(boxes.shape)}: {int(got_m.sum())} alive of {int(valid.sum())} valid")
+        if name == "R-FCN":
+            baked = dict(flat)
+            w, b = baked.pop("arg:rfcn_bbox_weight"), baked.pop("arg:rfcn_bbox_bias")
+            rep = b.shape[0] // 4
+            stds = np.tile(np.asarray(cfg.TRAIN.BBOX_STDS, np.float32), rep)
+            means = np.tile(np.asarray(cfg.TRAIN.BBOX_MEANS, np.float32), rep)
+            baked["arg:rfcn_bbox_weight_test"] = w * stds[:, None, None, None]
+            baked["arg:rfcn_bbox_bias_test"] = b * stds + means
+            state, report = import_mxnet_lsfa(loaded.state_dict(), baked,
+                                              tuple(cfg.TRAIN.BBOX_MEANS),
+                                              tuple(cfg.TRAIN.BBOX_STDS))
+            check(not report["unused"] and "rfcn_bbox.weight" in report["imported"],
+                  f"baked release: report {report['unused']}")
+            rel = 0.0
+            for k, live in (("rfcn_bbox.weight", w), ("rfcn_bbox.bias", b)):
+                got_k = state[k].numpy()
+                check(np.allclose(got_k, live, rtol=1e-6, atol=0.0),
+                      f"baked release: {k} un-baked off by {np.abs(got_k - live).max()}")
+                rel = max(rel, float((np.abs(got_k - live) / np.abs(live)).max()))
+            print(f"reference weights: an R-FCN release with only rfcn_bbox_*_test (baked with "
+                  f"BBOX_STDS {list(cfg.TRAIN.BBOX_STDS)}): un-baked rfcn_bbox within {rel:.2e} "
+                  f"relative of the live weights (limit 1e-6)")
+        del source, loaded, det, flat
+    return launches, err, ckpts
+
+
+def launcher_phase(dev, nms_cuda, tmp, ckpt):
+    """Phase 20: experiments.lsfa_test.run_test with the flagship's JSON
+    config and phase 19's LSFA checkpoint over an ImageNet VID tree of two
+    videos of 36 and 30 frames (960x576, seeded annotations), the streams
+    given by SyntheticPreparedVideo through open_video: a finite mAP in
+    [0, 1], 66 records, the kernel's launches equal to the count reckoned
+    from the recorded schedule (4 per GOP, 2 per tail frame); then the same
+    with streams=2, whose detections equal the sequential run's. Returns
+    {path: kernel launches}."""
+    import pickle
+
+    import torch
+
+    from lsfa_tpu_torch.config import load_config
+    from lsfa_tpu_torch.data.loader import SyntheticPreparedVideo
+    from lsfa_tpu_torch.experiments.lsfa_test import run_test
+
+    lengths = {"smoke_a": 36, "smoke_b": 30}
+    dataset_path = tmp / "ILSVRC2015"
+    image_set = write_vid_tree(dataset_path, lengths, 576, 960, seed=15)
+    streams_of = {str(dataset_path / "Data" / "VID" / "mpeg4_snippets" / "val" / f"{n}.mp4"): k
+                  for n, k in lengths.items()}
+
+    def open_video(path, *args, **kw):
+        return SyntheticPreparedVideo(path, *args, num_frames=streams_of[path],
+                                      content_hw=CONTENT, im_scale=600 / 576, **kw)
+
+    n_frames = sum(lengths.values())
+    launches, dets = {}, {}
+    for streams, key in ((0, "launcher"), (2, "launcher_streams2")):
+        cfg = load_config(str(LSFA_CONFIG), overrides={
+            "output_path": str(tmp / f"out_{key}"),
+            "dataset": {"root_path": str(tmp), "dataset_path": str(dataset_path),
+                        "test_image_set": image_set},
+            "TEST": {"test_epoch": 0}})
+        calls = []
+        torch.cuda.synchronize()
+        nms_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with recorded_schedule(calls):
+            mean_ap, ap = run_test(cfg, ckpt_dir=ckpt, streams=streams, open_video=open_video,
+                                   device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launches[key] = nms_cuda.LAUNCHES
+        out_dir = Path(cfg.output_path) / cfg.symbol / cfg.dataset.test_image_set
+        with open(out_dir / "detections.pkl", "rb") as f:
+            dets[key] = pickle.load(f)
+        check_detections(key, dets[key], n_frames)
+        check(np.isfinite(mean_ap) and 0.0 <= mean_ap <= 1.0, f"{key}: mAP {mean_ap}")
+        windows = [c for c in calls if c["kind"] == "window"]
+        frames = [c for c in calls if c["kind"] == "frame"]
+        check(sorted(c["gops"] for c in windows) == [1, 2, 2]
+              and [c["flag"] for c in frames] == [0, 2, 2, 2, 2, 2],
+              f"{key}: windows {[c['gops'] for c in windows]}, frame flags "
+              f"{[c['flag'] for c in frames]}")
+        reckoned = 4 * sum(c["gops"] for c in windows) + 2 * len(frames)
+        check(launches[key] == reckoned == 32,
+              f"{key}: {launches[key]} kernel launches, {reckoned} reckoned from the schedule")
+        loop_s = t1 - calls[0]["t0"]
+        print(f"launcher: run_test({LSFA_CONFIG.name}, phase 19's checkpoint, streams={streams}) "
+              f"over 2 videos of 36 and 30 frames: {len(dets[key])} records, mAP@0.5 "
+              f"{mean_ap:.4f} over {int(np.isfinite(ap).sum())} classes with gt (seeded weights); "
+              f"{t1 - t0:.2f} s in all, of it the loop {loop_s:.3f} s = {n_frames / loop_s:.1f} "
+              f"frames/s; nms kernel launches {launches[key]} (4 x 5 GOPs + 2 x 6 tail frames)")
+    worst = same_detections("launcher streams=2", dets["launcher_streams2"], dets["launcher"])
+    print(f"launcher: streams=2 detections equal the sequential run's (max abs difference "
+          f"scores {worst['scores']:.2e}, boxes {worst['boxes']:.2e})")
+    return launches
+
+
+def imagenet_resnet_params(rng, units=(3, 4, 23, 3)):
+    """A stand-in for the reference's ImageNet ResNet file
+    (resnet-101-0000.params for the default units): its names and shapes,
+    written out from the architecture (bn_data with the gamma of
+    fix_gamma, the stem, four stages of `units` bottleneck units with a
+    projection in each first unit, bn1 and the classifier fc1), seeded
+    values: convs at variance 1/fan-in, BatchNorms near identity,
+    bn_data's statistics those of the frames' pixels."""
+    arrays = {}
+
+    def conv(name, o, i, k):
+        arrays[f"arg:{name}_weight"] = (rng.standard_normal((o, i, k, k))
+                                        / np.sqrt(i * k * k)).astype(np.float32)
+
+    def bn(name, c, mean=0.0, var=1.0):
+        arrays[f"arg:{name}_gamma"] = (1.0 + 0.1 * rng.standard_normal(c)).astype(np.float32)
+        arrays[f"arg:{name}_beta"] = (0.1 * rng.standard_normal(c)).astype(np.float32)
+        arrays[f"aux:{name}_moving_mean"] = (mean + 0.1 * rng.standard_normal(c)).astype(
+            np.float32)
+        arrays[f"aux:{name}_moving_var"] = (var * rng.uniform(0.8, 1.2, c)).astype(np.float32)
+
+    bn("bn_data", 3, mean=127.5, var=73.9 ** 2)
+    conv("conv0", 64, 3, 7)
+    bn("bn0", 64)
+    cin = 64
+    for s, (n, f) in enumerate(zip(units, (256, 512, 1024, 2048)), start=1):
+        for u in range(1, n + 1):
+            p, mid = f"stage{s}_unit{u}", f // 4
+            bn(f"{p}_bn1", cin)
+            conv(f"{p}_conv1", mid, cin, 1)
+            bn(f"{p}_bn2", mid)
+            conv(f"{p}_conv2", mid, mid, 3)
+            bn(f"{p}_bn3", mid)
+            conv(f"{p}_conv3", f, mid, 1)
+            if u == 1:
+                conv(f"{p}_sc", f, cin, 1)
+            cin = f
+    bn("bn1", 2048)
+    arrays["arg:fc1_weight"] = (0.01 * rng.standard_normal((1000, 2048))).astype(np.float32)
+    arrays["arg:fc1_bias"] = np.zeros(1000, np.float32)
+    return arrays
+
+
+def flownet_s_params(rng, feat_dim=1024):
+    """A stand-in for the reference's FlyingChairs FlowNet-S file: the
+    names and shapes of get_flownet (resnet_v1_101_flownet_rfcn.py:150-207)
+    written out, the scale map with feat_dim outputs, seeded values at
+    variance 1/fan-in, the scale map's bias near 1."""
+    arrays = {}
+    convs = [("flow_conv1", 64, 6, 7), ("conv2", 128, 64, 5), ("conv3", 256, 128, 5),
+             ("conv3_1", 256, 256, 3), ("conv4", 512, 256, 3), ("conv4_1", 512, 512, 3),
+             ("conv5", 512, 512, 3), ("conv5_1", 512, 512, 3), ("conv6", 1024, 512, 3),
+             ("conv6_1", 1024, 1024, 3), ("Convolution1", 2, 1024, 3),
+             ("Convolution2", 2, 1026, 3), ("Convolution3", 2, 770, 3),
+             ("Convolution4", 2, 386, 3), ("Convolution5", 2, 194, 3),
+             ("Convolution5_scale", feat_dim, 194, 1)]
+    for name, o, i, k in convs:
+        arrays[f"arg:{name}_weight"] = (rng.standard_normal((o, i, k, k))
+                                        / np.sqrt(i * k * k)).astype(np.float32)
+        arrays[f"arg:{name}_bias"] = (0.01 * rng.standard_normal(o)
+                                      + (name == "Convolution5_scale")).astype(np.float32)
+    # Deconvolution weights are (in, out, 4, 4)
+    for name, i, o in (("deconv5", 1024, 512), ("deconv4", 1026, 256), ("deconv3", 770, 128),
+                       ("deconv2", 386, 64), ("upsample_flow6to5", 2, 2),
+                       ("upsample_flow5to4", 2, 2), ("upsample_flow4to3", 2, 2),
+                       ("upsample_flow3to2", 2, 2)):
+        arrays[f"arg:{name}_weight"] = (rng.standard_normal((i, o, 4, 4))
+                                        / np.sqrt(i * 16)).astype(np.float32)
+        arrays[f"arg:{name}_bias"] = (0.01 * rng.standard_normal(o)).astype(np.float32)
+    return arrays
+
+
+def warm_start_phase(dev, cfg, nms_cuda, greedy_alive, tmp, rfcn_ckpt):
+    """Phase 21: init_model on `cfg` (the flagship's defaults) with
+    network.pretrained set to a backbone-only .params
+    (`imagenet_resnet_params`, as a <prefix>-<epoch> name) and
+    pretrained_flow to a FlowNet-only one
+    (`flownet_s_params`): the imported tensors equal the files' before
+    step 1, the small net equals the warm backbone; then train_net takes 2
+    steps at the bucket (the checks of phase 6). Then pretrained_detector
+    set to phase 19's R-FCN checkpoint: the shared stack transfers; and a
+    checkpoint that shares nothing raises. Returns (kernel launches, max
+    abs error of the masks)."""
+    import torch
+    from torch import nn
+
+    from lsfa_tpu_torch.models.resnet import RESNET_UNITS
+    from lsfa_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from lsfa_tpu_torch.train.driver import init_model
+    from lsfa_tpu_torch.train.import_mxnet import torch_to_mx_name
+    from lsfa_tpu_torch.utils.mxnet_io import save_params
+
+    rng = np.random.default_rng(16)
+    det_cfg = cfg.copy()
+    resnet = f"resnet-{cfg.network.num_layer}"
+    backbone = imagenet_resnet_params(rng, RESNET_UNITS[cfg.network.num_layer])
+    flownet = flownet_s_params(rng, cfg.network.DFF_FEAT_DIM)
+    save_params(str(tmp / f"{resnet}-0000.params"), backbone)
+    save_params(str(tmp / "flownet-0000.params"), flownet)
+    cfg.network.pretrained = str(tmp / resnet)
+    cfg.network.pretrained_flow = str(tmp / "flownet-0000.params")
+    log = Lines()
+    t0 = time.perf_counter()
+    model = init_model(cfg, rng_seed=0, device=dev, logger=log)
+    init_s = time.perf_counter() - t0
+    state = model.state_dict()
+    files = {**backbone, **flownet}
+    matched = 0
+    for key, t in state.items():
+        mapped = torch_to_mx_name(key)
+        name = mapped and ("aux:" if key.endswith(("_mean", "_var")) else "arg:") + mapped[0]
+        if name in files:
+            check(torch.equal(t.cpu(), torch.from_numpy(files[name])),
+                  f"warm start: {key} differs from the file's {name}")
+            matched += 1
+    unused = ("arg:bn_data_gamma", "arg:fc1_weight", "arg:fc1_bias")
+    check(matched == len(files) - len(unused), f"warm start: {matched} of {len(files)} tensors")
+    check(log.lines[-2:] == [
+        f"imported {len(backbone) - 3} tensors from {cfg.network.pretrained}-0000.params "
+        f"(3 unused)",
+        f"imported {len(flownet)} tensors from {cfg.network.pretrained_flow} (0 unused)"],
+        f"warm start log {log.lines}")
+    small = [k for k in state if k.startswith("small_net_backbone.")
+             and not k.endswith(("_mean", "_var"))]
+    check(small and all(torch.equal(state[k], state["backbone." + k[19:]]) for k in small),
+          "warm start: the small net is not the warm backbone's")
+    print(f"warm start: init_model (flagship) with pretrained={resnet} "
+          f"({resnet}-0000.params: {len(backbone)} tensors at the reference's ImageNet names) "
+          f"and pretrained_flow=flownet-0000.params ({len(flownet)} tensors) in {init_s:.2f} s: "
+          f"{matched} tensors equal the files' (bn_data_gamma, fc1_* unused), {len(small)} "
+          f"small-net parameters equal the warm backbone's")
+    # the FlowNet's biases come from the file at 1e-2: a flow bias's update
+    # in two steps can round away (phase 6 starts them at 0)
+    flow_biases = tuple(k for k, p in model.named_parameters()
+                        if k.startswith("flownet.") and p.ndim == 1)
+    r = train_run(cfg, model, 2, nms_cuda, greedy_alive,
+                  still_ok=("nq_net.conv3.bias",) + flow_biases)
+    print(train_line(f"warm start: LSFA ResNet-101 bf16 warm-started at {BUCKET[0]}x{BUCKET[1]}, "
+                     f"B=1, 2 steps of train_net", r))
+    launches, err = r["launches"], r["err"]
+    del model, r, state
+
+    det_cfg.network.pretrained_detector = rfcn_ckpt
+    log = Lines()
+    warm = init_model(det_cfg, rng_seed=1, device=dev, logger=log).state_dict()
+    det_state, _ = load_checkpoint(rfcn_ckpt)
+    check(all(torch.equal(warm[k].cpu(), v) for k, v in det_state["model"].items()),
+          "pretrained_detector: the R-FCN's stack did not transfer")
+    bogus = tmp / "bogus"
+    dummy = nn.Module()
+    dummy.not_a_module = nn.Linear(2, 2)
+    opt = torch.optim.SGD(dummy.parameters(), lr=0.1)
+    save_checkpoint(str(bogus), 1, dummy, opt,
+                    torch.optim.lr_scheduler.LambdaLR(opt, lambda c: 1.0), step=0,
+                    rng_state=torch.Generator().get_state())
+    det_cfg.network.pretrained_detector = str(bogus)
+    try:
+        init_model(det_cfg, device=dev)
+        fail("pretrained_detector sharing nothing did not raise")
+    except ValueError as e:
+        check("shares no parameter" in str(e), f"pretrained_detector raised {e!r}")
+    print(f"warm start: pretrained_detector=phase 19's R-FCN checkpoint: {log.lines[-1]}; all "
+          f"{len(det_state['model'])} R-FCN entries equal; a checkpoint sharing nothing raised "
+          f"ValueError")
+    return launches, err
+
+
 def main():
     import torch
 
@@ -1070,7 +1530,6 @@ def main():
     from lsfa_tpu_torch.models.lsfa import init_params, lsfa_from_config
     from lsfa_tpu_torch.ops import nms_cuda
     from lsfa_tpu_torch.ops.nms import greedy_alive
-    from lsfa_tpu_torch.ops.proposal import proposal_candidates
 
     dev = torch.device("cuda", 0)
     # torch's default: cuDNN convolutions may run in TF32. The package pins
@@ -1183,19 +1642,8 @@ def main():
           f"{int(outs[-1][3].sum()) // (GOP - 1)} (key, non-key mean)")
 
     # the kernel on the last key frame's real RPN input
-    feat_key, data_key, _ = last_state
-    p = payloads[-1]
-    with torch.no_grad():
-        key = torch.from_numpy(p[0][0:1]).to(dev)
-        kout = model.forward_key(key, data_key, feat_key, torch.zeros(1, device=dev))
-        info = torch.from_numpy(p[4][None]).to(dev)
-        boxes, _, valid = proposal_candidates(
-            kout["rpn_fg"], kout["rpn_deltas"], det.anchors, info,
-            cfg.TEST.RPN_PRE_NMS_TOP_N, cfg.TEST.RPN_MIN_SIZE,
-            cfg.network.RPN_FEAT_STRIDE, cfg.tpu.nms_tier)
-        boxes = boxes.contiguous()
-        got, _ = nms_cuda.greedy_alive_cuda(boxes, valid, cfg.TEST.RPN_NMS_THRESH, 31)
-        want = greedy_alive(boxes, valid, cfg.TEST.RPN_NMS_THRESH, 31)
+    got, want, boxes, valid = key_rpn_masks(det, last_state, payloads[-1], False, nms_cuda,
+                                            greedy_alive)
     check(torch.equal(got, want), "kernel != plain on the key frame's RPN input")
     print(f"main path: kernel mask equals plain on the key frame's RPN input "
           f"{tuple(boxes.shape)}: {int(got.sum())} alive of {int(valid.sum())} valid")
@@ -1239,8 +1687,20 @@ def main():
     check(torch.backends.cudnn.allow_tf32 is True,
           "torch.backends.cudnn.allow_tf32 was left changed by the package")
 
-    # 19. launches and device time by torch.profiler, last: after a profiled
-    # window the host's launches stay slower, which would bias phases 3-18
+    # 19-21: the reference's weights through the importer and the
+    # launcher, and the warm-started trainer
+    with tempfile.TemporaryDirectory() as scratch:
+        scratch = Path(scratch)
+        rt_launches, rt_err, ckpts = reference_roundtrip(dev, nms_cuda, greedy_alive, scratch)
+        launcher_launches = launcher_phase(dev, nms_cuda, scratch, ckpts["LSFA"])
+        warm_launches, warm_err = warm_start_phase(dev, get_default_config(), nms_cuda,
+                                                   greedy_alive, scratch, ckpts["R-FCN"])
+    max_err = max(max_err, rt_err, warm_err)
+    check(torch.backends.cudnn.allow_tf32 is True,
+          "torch.backends.cudnn.allow_tf32 was left changed by the package")
+
+    # 22. launches and device time by torch.profiler, last: after a profiled
+    # window the host's launches stay slower, which would bias phases 3-21
     rfcn_account(dev)
     timed = iter(shapes)
     for name, b, v, thresh, sweeps, is_timed in checked:
@@ -1266,13 +1726,15 @@ def main():
         "source": "lsfa_tpu_torch/csrc/nms_sweep.cu",
         "replaces": "lsfa_tpu/ops/pallas_nms.py:97",
         "launches": (launches + train_launches + serve_launches + rfcn_launches + bn_launches
-                     + sum(eval_launches.values())),
+                     + sum(eval_launches.values()) + sum(rt_launches.values())
+                     + sum(launcher_launches.values()) + warm_launches),
         "max_abs_err": max_err,
         "ms": rpn["us"] / 1e3, "plain_ms": rpn["plain_us"] / 1e3,
         "bound_ms": rpn["bound_us"] / 1e3, "bound_by": rpn["bound_by"], "library_ms": None,
         "launches_by_path": {"streaming": launches, "train": train_launches,
                              "rfcn_serve": serve_launches, "rfcn_train": rfcn_launches,
-                             "train_bn": bn_launches, **eval_launches},
+                             "train_bn": bn_launches, **eval_launches, **rt_launches,
+                             **launcher_launches, "warm_train": warm_launches},
         "shapes": shapes}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,8 @@
 The same knobs and defaults as ``lsfa_tpu.config`` (a nested attribute
 dict with hard defaults, a strict YAML overlay where unknown keys raise,
 and derived network fields), carried here because importing any module of
-``lsfa_tpu`` imports JAX. ``yaml`` is imported only inside ``load_config``.
+``lsfa_tpu`` imports JAX. A config file is JSON or YAML; ``yaml`` is
+imported only inside ``load_config``, for a YAML file.
 
 The ``tpu`` section keeps its name so that YAML files written for the JAX
 package load unchanged. Of it the port reads ``compute_dtype``,
@@ -15,6 +16,7 @@ and ignored: payloads are float32 and every GOP is one eager step.
 from __future__ import annotations
 
 import copy
+import json
 
 import torch
 
@@ -212,13 +214,19 @@ def _merge(dst: AttrDict, src: dict, path: str = "") -> None:
 
 
 def load_config(path: str | None = None, overrides: dict | None = None) -> AttrDict:
-    """Build a config: defaults, then strict YAML overlay, then overrides."""
+    """Build a config: defaults, then the strict overlay of a ``.json`` or
+    ``.yaml`` file, then overrides. ``yaml`` is imported for a ``.yaml``
+    path only; the JSON twins of ``configs/*.yaml`` are in
+    ``lsfa_tpu_torch/configs/``."""
     c = get_default_config()
     if path is not None:
-        import yaml
-
         with open(path) as f:
-            _merge(c, yaml.safe_load(f))
+            if str(path).endswith(".json"):
+                _merge(c, json.load(f))
+            else:
+                import yaml
+
+                _merge(c, yaml.safe_load(f))
     if overrides:
         _merge(c, overrides)
     _finalize(c)

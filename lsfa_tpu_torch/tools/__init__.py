@@ -1,0 +1,1 @@
+"""Command-line tools of lsfa_tpu_torch, run with ``python -m``."""

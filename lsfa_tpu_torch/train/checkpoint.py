@@ -5,16 +5,19 @@ A checkpoint is ``<dir>/<epoch>.pt`` holding the model's and optimizer's
 state dicts, the scheduler's, the trainer's step count and generator state,
 and the epoch. `seed_small_net` copies the main backbone's weights into the
 small-net trunk (the reference initializes small_net_* from the backbone);
-`combine_checkpoints` merges pretrained sub-state-dicts by name and shape.
+`combine_checkpoints` merges pretrained sub-state-dicts by name and shape;
+`import_torch_resnet` takes the convolutions of a torchvision ResNet.
 """
 
 from __future__ import annotations
 
 import os
+import re
 
 import torch
 
 _RUNNING = ("running_mean", "running_var")
+_UNIT_CONV = re.compile(r"stage(\d)_unit(\d+)\.(conv[123]|sc)\.weight")
 
 
 def _path(path: str, epoch: int) -> str:
@@ -82,3 +85,35 @@ def combine_checkpoints(state: dict, sources: dict) -> tuple[dict, int]:
                 out[full] = v
                 copied += 1
     return out, copied
+
+
+def import_torch_resnet(state: dict, state_dict: dict, prefix: str = "backbone"):
+    """Map a torchvision ResNet state_dict onto the `prefix` trunk of a
+    model's state dict. Returns (new state dict, number imported).
+
+    A secondary warm start: for the reference's pretrained weights use
+    ``train.import_mxnet.import_mxnet_lsfa``, which also reads the
+    BatchNorm running statistics. torchvision's ResNets are
+    post-activation (v1) and the trunk here is pre-activation (v2), so
+    their BatchNorms pair differently: this imports the stem conv
+    (``conv1``) and each unit's convs by position (``layer{s}.{u}.conv{c}``,
+    ``downsample.0``) where the shapes match, and leaves BatchNorm at
+    init; callers check the count."""
+    out = dict(state)
+    imported = 0
+    for key in state:
+        if not key.startswith(prefix + "."):
+            continue
+        rest = key[len(prefix) + 1:]
+        m = _UNIT_CONV.fullmatch(rest)
+        if rest == "conv0.weight":
+            src = "conv1.weight"
+        elif m:
+            s, u, conv = m.groups()
+            src = f"layer{s}.{int(u) - 1}.{'downsample.0' if conv == 'sc' else conv}.weight"
+        else:
+            continue
+        if src in state_dict and tuple(state_dict[src].shape) == tuple(state[key].shape):
+            out[key] = torch.as_tensor(state_dict[src], dtype=torch.float32).clone()
+            imported += 1
+    return out, imported

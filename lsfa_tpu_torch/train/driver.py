@@ -2,8 +2,10 @@
 ``lsfa_tpu.train.driver``.
 
 `init_model` builds the config's model (LSFA, or the single-frame R-FCN
-for an ``rfcn*`` symbol) with random weights from a seed and seeds the
-small-net trunk from the backbone. `train_net`
+for an ``rfcn*`` symbol) with random weights from a seed, applies the
+warm starts the config names (the reference's MXNet ``.params`` files,
+the port's own checkpoints) and seeds the small-net trunk from the
+backbone. `train_net`
 runs the recipe (SGD with the warm-up multi-factor schedule, per-epoch
 checkpoints, resume) over an iterable of collated host batches
 (``data.loader.collate_train_batch`` or ``synthetic_train_batches``).
@@ -12,6 +14,7 @@ checkpoints, resume) over an iterable of collated host batches
 from __future__ import annotations
 
 import logging
+import os
 import time
 
 import torch
@@ -19,7 +22,9 @@ import torch
 from lsfa_tpu_torch.data.loader import batch_to_device
 from lsfa_tpu_torch.eval.rfcn_tester import rfcn_from_config
 from lsfa_tpu_torch.models.lsfa import init_params, lsfa_from_config, resolve_device
-from lsfa_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint, seed_small_net
+from lsfa_tpu_torch.train.checkpoint import (
+    combine_checkpoints, load_checkpoint, save_checkpoint, seed_small_net)
+from lsfa_tpu_torch.train.import_mxnet import import_mxnet_lsfa
 from lsfa_tpu_torch.train.schedule import make_optimizer
 from lsfa_tpu_torch.train.train_step import (
     TrainSettings, draw_uniforms, make_rfcn_train_step, make_train_step)
@@ -31,24 +36,88 @@ def is_rfcn(cfg) -> bool:
     return str(cfg.symbol).startswith("rfcn")
 
 
-def init_model(cfg, rng_seed: int = 0, device=None, logger=None):
-    """The model of `cfg` (`RFCN` when `is_rfcn`, else `LSFA`) on
-    `device` (the card when None; raises without one unless
-    device="cpu"), weights drawn from a generator seeded with rng_seed on
-    that device, small-net trunk seeded from the backbone. Pretrained
-    files (network.pretrained, pretrained_flow, pretrained_detector) are
-    not read: warm starts from MXNet .params and flax checkpoints are not
-    ported."""
+# the detection stack a trained detector shares with LSFA and R-FCN
+SHARED_STACK = ("backbone", "feat_conv_3x3", "rpn_cls_score", "rpn_bbox_pred",
+                "rfcn_cls", "rfcn_bbox")
+
+
+def build_model(cfg, rng_seed: int = 0, device=None):
+    """The model of `cfg` (`RFCN` when `is_rfcn`, else `LSFA`) on `device`
+    (the card when None; raises without one unless device="cpu"), weights
+    drawn from a generator seeded with rng_seed on that device. No warm
+    start, no small-net seeding."""
     if str(cfg.tpu.param_dtype) != "float32":
         raise NotImplementedError("parameters are float32 in the port")
-    for key in ("pretrained", "pretrained_flow", "pretrained_detector"):
-        name = str(cfg.network.get(key, "") or "")
-        if name and logger is not None:
-            logger.warning(f"network.{key}={name!r} is not loaded: warm starts are not ported")
     device = resolve_device(device)
     model = (rfcn_from_config if is_rfcn(cfg) else lsfa_from_config)(cfg, device=device)
     init_params(model, torch.Generator(device=device).manual_seed(rng_seed))
-    model.load_state_dict(seed_small_net(model.state_dict()))
+    return model
+
+
+def _sub_state(state: dict, top: str) -> dict:
+    """The entries of `state` under module `top`, keyed below it."""
+    return {k[len(top) + 1:]: v for k, v in state.items() if k.startswith(top + ".")}
+
+
+def init_model(cfg, rng_seed: int = 0, device=None, logger=None):
+    """`build_model`, then the pretrained init in the JAX package's order
+    (the reference's load_param + combine_model, train_end2end.py:107-115):
+
+    1. network.pretrained and network.pretrained_flow: each a .params path
+       or a prefix read as ``<prefix>-<pretrained_epoch:04d>.params``,
+       imported by name (a missing file is logged and skipped);
+       pretrained_flow may instead name a checkpoint directory of this
+       package (``<dir>/<epoch>.pt``, the latest epoch), whose ``flownet``
+       entries are merged;
+    2. network.pretrained_detector: a checkpoint directory of this package
+       (e.g. the single-frame R-FCN's), whose shared detection stack
+       (`SHARED_STACK`, BatchNorm statistics included) is merged by name
+       and shape; ValueError when it shares no parameter;
+    3. the small-net trunk seeded from the (warm) backbone.
+
+    The JAX package reads orbax directories where this one reads its own
+    checkpoints."""
+    logger = logger or logging.getLogger("lsfa_tpu_torch.train")
+    model = build_model(cfg, rng_seed, device)
+    state = model.state_dict()
+    net = cfg.network
+    for key in ("pretrained", "pretrained_flow"):
+        name = str(net.get(key, "") or "")
+        if not name:
+            continue
+        if key == "pretrained_flow" and os.path.isdir(name):
+            restored, epoch = load_checkpoint(name)
+            flownet = _sub_state(restored["model"], "flownet")
+            if not flownet:
+                raise ValueError(f"pretrained_flow dir {name} has no 'flownet' entries")
+            state, n = combine_checkpoints(state, {"flownet": flownet})
+            logger.info(f"warm-started {n} flownet tensors from {name} (epoch {epoch})")
+            continue
+        path = name if name.endswith(".params") else (
+            "%s-%04d.params" % (name, int(net.pretrained_epoch)))
+        if not os.path.exists(path):
+            logger.warning(f"pretrained file not found, skipping: {path}")
+            continue
+        state, report = import_mxnet_lsfa(state, path, bbox_means=tuple(cfg.TRAIN.BBOX_MEANS),
+                                          bbox_stds=tuple(cfg.TRAIN.BBOX_STDS))
+        logger.info(f"imported {len(report['imported'])} tensors from {path} "
+                    f"({len(report['unused'])} unused)")
+
+    det = str(net.get("pretrained_detector", "") or "")
+    if det:
+        restored, epoch = load_checkpoint(det)
+        src = {top: _sub_state(restored["model"], top) for top in SHARED_STACK}
+        merged, n = combine_checkpoints(state, src)
+        n_stats = sum(k.endswith(("running_mean", "running_var"))
+                      for k in merged if merged[k] is not state[k])
+        if n == n_stats:
+            raise ValueError(f"pretrained_detector {det} (epoch {epoch}) shares no parameter "
+                             f"with this model — wrong checkpoint?")
+        state = merged
+        logger.info(f"warm-started {n - n_stats} param + {n_stats} batch-stat tensors from "
+                    f"detector checkpoint {det} (epoch {epoch})")
+
+    model.load_state_dict(seed_small_net(state))
     return model
 
 

@@ -238,13 +238,13 @@ def test_rfcn_constructors_default_to_the_card():
 
 
 def test_chip_smoke_rfcn_overrides_equal_published_config():
-    """chip_smoke.py gives configs/rfcn_resnet101_vid.yaml as an overrides
-    dict (no yaml on the card's machine); both load to the same tree, which
+    """chip_smoke.py reads configs/rfcn_resnet101_vid.yaml through its JSON
+    twin (no yaml on the card's machine); both load to the same tree, which
     is also the JAX package's."""
     sys.path.insert(0, ROOT)
     import chip_smoke
 
-    ours = load_config(None, overrides=chip_smoke.RFCN_OVERRIDES)
+    ours = load_config(chip_smoke.RFCN_CONFIG)
     assert ours == load_config(FLAGSHIP) == jax_load_config(FLAGSHIP)
     assert (ours.network.num_layer, ours.network.add_dcn, ours.network.DFF_FEAT_DIM,
             ours.tpu.compute_dtype, ours.tpu.nms_tier, ours.TEST.NMS) == (
