@@ -13,7 +13,8 @@ Phases, each printing one line before the last:
      cut valid mask, ragged N, N = 1, the two-phase N = 2049 and 8192,
      and knife-edge pairs whose float32 IoU lies within 2 ulps of t;
      checks that N <= 2048 allocates no scratch (torch.cuda memory
-     statistics); median times per call of kernel and plain version, the
+     statistics) and that a call is one kernel for N <= 2048 and two
+     above (the nodes of a CUDA graph captured around it); median times per call of kernel and plain version, the
      bound and the share of the bound at the timed shapes;
   4. main path: the flagship LSFA (ResNet-101 with DCN, FlowNet-S, Nq-net,
      R-net, small net) at full width, random weights from a seed, bf16,
@@ -110,14 +111,30 @@ Phases, each printing one line before the last:
      of train_net (the checks of phase 6); pretrained_detector from phase
      19's R-FCN checkpoint transfers the shared stack, and a checkpoint
      that shares nothing raises;
- 22. profiled: the R-FCN frame and train step, host enqueue against wall
+ 22. train and test: an ImageNet tree the phase writes (DET_train_30classes,
+     4 images of 375x500; VID_train_15frames, 15 frames of each of 2
+     videos of 36 frames at 720x1280, one stream a frame short;
+     VID_val_videos, 24 and 18 frames, one stream a frame short) through
+     train.driver.load_train_roidb (68 records with the flipped copies);
+     the host chain's ms per sample; one flagship step (warm-started from
+     phase 21's files) through NCCL at world size 1 equal to the same step
+     without a process group; then experiments.lsfa_end2end_train_test.main
+     at --max-steps 4 under that process group, SyntheticVideoReader and a
+     seeded image reader feeding TrainLoader's host chain and
+     SyntheticPreparedVideo the evaluation: finite metrics, one kernel
+     launch per step, the kernel's mask equal to the plain version's on
+     the last step's RPN input, the checkpoint reloads with frozen
+     parameters unchanged, run_test's mAP in [0, 1] with 24 launches
+     reckoned from its schedule; prints ms per step, peak memory, the feed
+     summary (loader-wait share) and run_test's frames/s;
+ 23. profiled: the R-FCN frame and train step, host enqueue against wall
      time, then their device time, kernels per call and top kernels under
-     torch.profiler; torch.profiler shows that each phase 3 case's call
-     runs one kernel for N <= 2048 and two above, and gives the kernel's
-     device time
-     at the timed shapes, also with num_sweeps = 0 (the build and one test
-     sweep), which splits build from sweeps (run last: a profiled window
-     slows later host launches).
+     torch.profiler; torch.profiler's count of kernels in each phase 3
+     case's call equals the captured graph's, and it gives the kernel's
+     device time at the timed shapes, also with num_sweeps = 0 (the build
+     and one test sweep), which splits build from sweeps (run last: a
+     profiled window slows later host launches). Where the profiler
+     records no device event, these device times read "not measured".
 Then one JSON line for the kernels and, last, the result line. Any failed
 phase exits non-zero before the result line is printed.
 """
@@ -279,6 +296,7 @@ def kernel_cases(rng):
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 FLOPS_PER_PAIR = 16     # two extents 8, intersection 3, union and clamp 3, divide 1, compare 1
+NOT_TRACED = "device time not measured: torch.profiler recorded no device event in 3 windows"
 
 
 def nms_bound_ms(b, n):
@@ -297,7 +315,10 @@ def device_kernels(fn, reps=1, top=0):
     device time per call (us), from torch.profiler; with top > 0 also the
     `top` kernel names (cut to 60 characters) that took the most device
     time, each with its share. A trace that holds no device event at all is
-    taken again, up to three times."""
+    taken again, up to three times; if all three hold none, the names are
+    [] and the time is None (not measured): CUPTI's tracing is a
+    measurement here, never a check (launches per call come from
+    `graph_kernels`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -311,14 +332,44 @@ def device_kernels(fn, reps=1, top=0):
         if events:
             break
     total = sum(e.time_range.elapsed_us() for e in events)
+    per_call = total / reps if events else None
     if not top:
-        return [e.name for e in events], total / reps
+        return [e.name for e in events], per_call
     by_name = {}
     for e in events:
         name = e.name.removeprefix("void ")[:60]
         by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    return [e.name for e in events], total / reps, [(n, us / total) for n, us in ranked]
+    return [e.name for e in events], per_call, [(n, us / total) for n, us in ranked]
+
+
+def graph_kernels(fn):
+    """(kernel nodes, all nodes) of a CUDA graph captured around one call
+    of fn(): the kernels that one call launches, counted without a
+    profiler. The graph is read through the driver API (cuGraphGetNodes,
+    cuGraphNodeGetType)."""
+    import ctypes
+
+    import torch
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    err = cuda.cuGraphGetNodes(raw, None, ctypes.byref(count))
+    nodes = (ctypes.c_void_p * count.value)()
+    if err == 0:
+        err = cuda.cuGraphGetNodes(raw, nodes, ctypes.byref(count))
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        err = err or cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        kinds.append(kind.value)
+    graph.reset()
+    check(err == 0, f"reading the captured graph failed with CUDA driver error {err}")
+    return kinds.count(0), len(kinds)        # 0: CU_GRAPH_NODE_TYPE_KERNEL
 
 
 def rpn_masks(out, anchors, info, cfg, nms_cuda, greedy_alive):
@@ -446,7 +497,7 @@ def train_run(cfg, model, n_steps, nms_cuda, greedy_alive, still_ok=()):
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            train_net(cfg, batches, max_steps=len(batches), metrics_hook=hook, model=model)
+            train_net(cfg, batches=batches, max_steps=len(batches), metrics_hook=hook, model=model)
     finally:
         torch.cuda.set_sync_debug_mode("default")
         nms_cuda.greedy_alive_cuda = kernel
@@ -702,11 +753,15 @@ def rfcn_account(dev):
             wall.append(time.perf_counter() - t0)
         names, dev_us, top = device_kernels(fn, 3, top=5)
         wall_ms = statistics.median(wall) * 1e3
-        print(f"profiled: {name} at {BUCKET[0]}x{BUCKET[1]}: host enqueue "
-              f"{statistics.median(enqueue) * 1e3:.2f} ms, wall {wall_ms:.2f} ms (median of 5); "
-              f"device {dev_us / 1e3:.2f} ms in {len(names) / 3:.0f} kernels per call (mean of "
-              f"3), busy share {dev_us / 1e3 / wall_ms:.2f}; top kernels by device time "
-              + "; ".join(f"{n} {share:.3f}" for n, share in top))
+        line = (f"profiled: {name} at {BUCKET[0]}x{BUCKET[1]}: host enqueue "
+                f"{statistics.median(enqueue) * 1e3:.2f} ms, wall {wall_ms:.2f} ms (median of 5); ")
+        if dev_us is None:
+            line += NOT_TRACED
+        else:
+            line += (f"device {dev_us / 1e3:.2f} ms in {len(names) / 3:.0f} kernels per call "
+                     f"(mean of 3), busy share {dev_us / 1e3 / wall_ms:.2f}; top kernels by "
+                     f"device time " + "; ".join(f"{n} {share:.3f}" for n, share in top))
+        print(line)
 
 
 def bn_training(dev, nms_cuda, greedy_alive):
@@ -1517,7 +1572,333 @@ def warm_start_phase(dev, cfg, nms_cuda, greedy_alive, tmp, rfcn_ckpt):
     return launches, err
 
 
+TRAIN_HW = (720, 1280)                  # the train and val videos' frames
+DET_HW = (375, 500)                     # the DET images'
+TRAIN_CONTENT = (562, 1000)             # 720x1280 resized (562.5 rounds half to even)
+
+
+def xml_annotation(rng, height, width, wnids):
+    """An ImageNet VID/DET annotation of the given size with 1-3 seeded
+    boxes of the classes `wnids`."""
+    objs = ""
+    for _ in range(int(rng.integers(1, 4))):
+        x1, y1 = rng.uniform(0, width * 0.6), rng.uniform(0, height * 0.6)
+        x2, y2 = x1 + rng.uniform(8, width * 0.4), y1 + rng.uniform(8, height * 0.4)
+        objs += (f"<object><name>{wnids[int(rng.integers(len(wnids)))]}</name><bndbox>"
+                 f"<xmin>{x1:.1f}</xmin><ymin>{y1:.1f}</ymin><xmax>{x2:.1f}</xmax>"
+                 f"<ymax>{y2:.1f}</ymax></bndbox></object>")
+    return (f"<annotation><size><width>{width}</width><height>{height}</height></size>"
+            f"{objs}</annotation>")
+
+
+def write_train_tree(dataset_path, det_images, videos, seed=0, det_hw=DET_HW,
+                     video_hw=TRAIN_HW):
+    """The training image sets under dataset_path: DET_train_30classes with
+    `det_images` records of det_hw and VID_train_15frames with 15 evenly
+    spaced frames of each video {name: frames} at video_hw (the last frame
+    among them), XML annotations with seeded boxes."""
+    rng = np.random.default_rng(seed)
+    wnids = ("n02691156", "n02419796", "n02131653", "n02834778", "n01503061")
+    root = Path(dataset_path)
+    (root / "ImageSets").mkdir(parents=True, exist_ok=True)
+    det_lines = []
+    for i in range(det_images):
+        name = f"train/det_{i:04d}"
+        det_lines.append(f"{name} {i + 1}\n")
+        path = root / "Annotations" / "DET" / f"{name}.xml"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(xml_annotation(rng, *det_hw, wnids))
+    (root / "ImageSets" / "DET_train_30classes.txt").write_text("".join(det_lines))
+    vid_lines = []
+    for name, n in videos.items():
+        folder = root / "Annotations" / "VID" / "train" / name
+        folder.mkdir(parents=True, exist_ok=True)
+        for k, fid in enumerate(np.linspace(0, n - 1, 15).round().astype(int)):
+            vid_lines.append(f"train/{name} {k + 1} {fid} {n}\n")
+            (folder / f"{fid:06d}.xml").write_text(xml_annotation(rng, *video_hw, wnids))
+    (root / "ImageSets" / "VID_train_15frames.txt").write_text("".join(vid_lines))
+
+
+def seeded_image(path, det_hw=DET_HW, video_hw=TRAIN_HW):
+    """read_image's stand-in (the card's machine has no PIL): a seeded BGR
+    float32 image at det_hw for a DET path, else at video_hw."""
+    import zlib
+
+    hw = det_hw if "/DET/" in str(path) else video_hw
+    rng = np.random.default_rng(zlib.crc32(str(path).encode()))
+    return rng.integers(0, 256, hw + (3,), dtype=np.uint8).astype(np.float32)
+
+
+@contextlib.contextmanager
+def env_vars(**values):
+    import os
+
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: str(v) for k, v in values.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def one_step(cfg, model, state, batch, draws):
+    """One LSFA train step from `state` on a device batch with given
+    draws, under whatever process group is active. Returns (metrics as
+    floats, the parameters after it)."""
+    import torch
+
+    from lsfa_tpu_torch.train.schedule import make_optimizer
+    from lsfa_tpu_torch.train.train_step import TrainSettings, make_train_step
+
+    model.load_state_dict(state)
+    t = cfg.TRAIN
+    opt, sched = make_optimizer(model, t.lr, [1000], momentum=t.momentum, wd=t.wd)
+    metrics = make_train_step(model, TrainSettings.from_config(cfg), opt, sched)(batch, draws)
+    torch.cuda.synchronize()
+    return ({k: float(v) for k, v in metrics.items()},
+            {k: p.detach().clone() for k, p in model.named_parameters()})
+
+
+def train_test_phase(dev, nms_cuda, greedy_alive, tmp):
+    """Phase 22: the train+test launcher over a DET+VID tree (see the
+    module docstring). Returns ({path: kernel launches}, max abs error of
+    the kernel's mask against the plain version's)."""
+    import logging
+    import socket
+
+    import torch
+
+    from lsfa_tpu_torch.config import load_config
+    from lsfa_tpu_torch.data.loader import (
+        SyntheticPreparedVideo, SyntheticVideoReader, TrainLoader, batch_to_device,
+        load_pair_sample)
+    from lsfa_tpu_torch.experiments import lsfa_end2end_train_test as launcher
+    from lsfa_tpu_torch.models.lsfa import lsfa_from_config
+    from lsfa_tpu_torch.parallel import mesh
+    from lsfa_tpu_torch.train import driver
+    from lsfa_tpu_torch.train.checkpoint import load_checkpoint
+    from lsfa_tpu_torch.train.schedule import frozen_names
+    from lsfa_tpu_torch.train.train_step import TrainSettings, draw_uniforms
+
+    dataset_path = tmp / "ILSVRC2015_train"
+    train_videos = {"vid_a": 36, "vid_b": 36}
+    write_train_tree(dataset_path, 4, train_videos, seed=22)
+    val_lengths = {"val_a": 24, "val_b": 18}
+    image_set = write_vid_tree(dataset_path, val_lengths, *TRAIN_HW, seed=23)
+    # vid_b's stream ends a frame before its annotation, as val_b's does:
+    # its last frame takes read_image in the train feed and in run_test
+    frames_of = {"vid_a": 36, "vid_b": 35, "val_a": 24, "val_b": 17}
+
+    def stream(path):
+        return frames_of[Path(path).stem]
+
+    def open_video(path):
+        return SyntheticVideoReader(path, *TRAIN_HW, num_frames=stream(path))
+
+    def open_eval_video(path, *args, **kw):
+        return SyntheticPreparedVideo(path, *args, num_frames=stream(path),
+                                      content_hw=TRAIN_CONTENT, im_scale=1000 / 1280, **kw)
+
+    twin = json.loads(LSFA_CONFIG.read_text())
+    twin["output_path"] = str(tmp / "out_train_test")
+    twin["dataset"].update(root_path=str(tmp / "root_train_test"),
+                           dataset_path=str(dataset_path), test_image_set=image_set)
+    # phase 21's seeded ImageNet ResNet-101 and FlowNet-S files: a trainer
+    # starts from them, and a random trunk's losses reach 1e5
+    twin["network"].update(pretrained=str(tmp / "resnet-101"),
+                           pretrained_flow=str(tmp / "flownet-0000.params"))
+    twin["TEST"]["test_epoch"] = 0
+    cfg_path = tmp / "lsfa_train_test.json"
+    cfg_path.write_text(json.dumps(twin))
+    cfg = load_config(str(cfg_path))
+
+    t0 = time.perf_counter()
+    roidb = driver.load_train_roidb(cfg)
+    roidb_s = time.perf_counter() - t0
+    n_det = sum("pattern" not in r for r in roidb)
+    check(len(roidb) == 2 * (4 + 30) and n_det == 8 and sum(r["flipped"] for r in roidb) == 34,
+          f"load_train_roidb: {len(roidb)} records, {n_det} DET")
+
+    # the host chain per sample (a video frame mid-GOP, a DET image)
+    mid = next(r for r in roidb if r.get("frame_seg_id", 0) % GOP == 5 and not r["flipped"])
+    det_rec = next(r for r in roidb if "pattern" not in r)
+    chain_ms = {}
+    for name, rec in (("video", mid), ("DET", det_rec)):
+        t0 = time.perf_counter()
+        for k in range(3):
+            load_pair_sample(rec, cfg, np.random.default_rng(k), open_video=open_video,
+                             read_image=seeded_image)
+        chain_ms[name] = (time.perf_counter() - t0) / 3 * 1e3
+
+    # a step through the distributed path at world size 1 against the same
+    # step without a process group: same state, batch and draws
+    model = driver.init_model(cfg, 0, dev)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    loader = TrainLoader(roidb, cfg, 1, num_workers=1, open_video=open_video,
+                         read_image=seeded_image)
+    batch = batch_to_device(next(iter(loader)), dev)
+    draws = draw_uniforms(TrainSettings.from_config(cfg), batch,
+                          torch.Generator(device=dev).manual_seed(5))
+    nms_cuda.LAUNCHES = 0
+    plain = [one_step(cfg, model, state, batch, draws) for _ in range(2)]
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=port, WORLD_SIZE=1, RANK=0, LOCAL_RANK=0)
+    with env_vars(**env):
+        check(mesh.initialize_distributed() == torch.device("cuda", 0), "rank's device")
+        try:
+            check(torch.distributed.get_backend() == "nccl" and mesh.world_size() == 1,
+                  f"process group {torch.distributed.get_backend()}, world {mesh.world_size()}")
+            dist_m, dist_p = one_step(cfg, model, state, batch, draws)
+            check_launches = nms_cuda.LAUNCHES
+            (m0, p0), (_, p1) = plain
+            spread = max(float((p1[k] - p0[k]).abs().max()) for k in p0)
+            met_err = max(abs(dist_m[k] - m0[k]) / max(abs(m0[k]), 1e-12) for k in m0)
+            par_err = max(float(((dist_p[k] - p0[k]).abs() / p0[k].abs().clamp(min=1.0)).max())
+                          for k in p0)
+            check(all(np.isfinite(v) for v in dist_m.values()), f"distributed step {dist_m}")
+            check(met_err <= 1e-5 and par_err <= 1e-6,
+                  f"the step through NCCL at world size 1 differs from the plain step: metrics "
+                  f"{met_err:.2e} relative, parameters {par_err:.2e}")
+            # the gradients' reduction alone (flat buffer, NCCL, copy back)
+            n_grads = sum(p.grad.numel() for p in model.parameters() if p.grad is not None)
+            reduce_ms = cuda_ms(lambda: mesh.all_reduce_gradients(model), reps=10)
+            del model, state, plain, dist_p, batch
+
+            # the launcher under the process group: train_net over the roidb,
+            # then run_test on the model just trained
+            steps, seen, last_train = [], {}, {}
+            kernel, made = nms_cuda.greedy_alive_cuda, driver.make_train_step
+
+            def recorded(boxes, valid, thresh, sweeps):
+                alive, conv = kernel(boxes, valid, thresh, sweeps)
+                seen.update(boxes=boxes.clone(), valid=valid.clone(), thresh=thresh,
+                            sweeps=sweeps, alive=alive.clone())
+                return alive, conv
+
+            def recording(*a, **kw):
+                step = made(*a, **kw)
+
+                def run(batch, draws):
+                    metrics = step(batch, draws)
+                    end = torch.cuda.Event(enable_timing=True)
+                    end.record()
+                    steps.append((metrics, end, nms_cuda.LAUNCHES, tuple(batch["data"].shape)))
+                    last_train.update(seen)
+                    return metrics
+                return run
+
+            log = Lines()
+            handler = logging.Handler()
+            handler.emit = lambda record: log.info(record.getMessage())
+            logger = logging.getLogger(f"lsfa_tpu_torch.{cfg.symbol}.{cfg.dataset.image_set}")
+            logger.addHandler(handler)
+            calls = []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            nms_cuda.LAUNCHES = 0
+            nms_cuda.greedy_alive_cuda, driver.make_train_step = recorded, recording
+            t0 = time.perf_counter()
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            try:
+                with recorded_schedule(calls):
+                    mean_ap, ap = launcher.main(["--cfg", str(cfg_path), "--max-steps", "4"],
+                                                open_video=open_video, read_image=seeded_image,
+                                                open_eval_video=open_eval_video)
+            finally:
+                nms_cuda.greedy_alive_cuda, driver.make_train_step = kernel, made
+                logger.removeHandler(handler)
+            torch.cuda.synchronize()
+            t_end = time.perf_counter()
+            wall = t_end - t0
+            launches = nms_cuda.LAUNCHES
+            check(mesh.active(), "the launcher ended a process group it did not start")
+        finally:
+            torch.distributed.destroy_process_group()
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    check(len(steps) == 4, f"the launcher ran {len(steps)} train steps, not 4")
+    check([n for _, _, n, _ in steps] == [1, 2, 3, 4],
+          f"kernel launches after each step {[n for _, _, n, _ in steps]}, not one per step")
+    for i, (m, _, _, _) in enumerate(steps):
+        bad = [k for k, v in m.items() if not bool(torch.isfinite(v))]
+        check(not bad, f"launcher train step {i}: non-finite {bad}")
+    want = greedy_alive(last_train["boxes"], last_train["valid"], last_train["thresh"],
+                        last_train["sweeps"])
+    check(torch.equal(last_train["alive"], want),
+          "kernel != plain on the launcher's last train step's RPN input")
+    err = float((last_train["alive"].int() - want.int()).abs().max())
+    windows = [c for c in calls if c["kind"] == "window"]
+    frames = [c for c in calls if c["kind"] == "frame"]
+    check(sorted(c["gops"] for c in windows) == [1, 2] and [c["flag"] for c in frames]
+          == [0, 2, 2, 2, 2, 2], f"run_test windows {[c['gops'] for c in windows]}, frame "
+          f"flags {[c['flag'] for c in frames]}")
+    test_launches = launches - 4
+    reckoned = 4 * sum(c["gops"] for c in windows) + 2 * len(frames)
+    check(test_launches == reckoned == 24,
+          f"run_test: {test_launches} kernel launches, {reckoned} reckoned from the schedule")
+    check(np.isfinite(mean_ap) and 0.0 <= mean_ap <= 1.0, f"launcher mAP {mean_ap}")
+    summary = [line for line in log.lines if line.startswith("feed summary")]
+    check(len(summary) == 1, f"feed summary lines {summary}")
+
+    ckpt_dir = (Path(cfg.output_path) / cfg.symbol / cfg.dataset.image_set / "checkpoints"
+                / cfg.TRAIN.model_prefix)
+    saved, epoch = load_checkpoint(str(ckpt_dir))
+    check(epoch == 1 and saved["step"] == 4, f"checkpoint epoch {epoch}, step {saved['step']}")
+    reloaded = lsfa_from_config(cfg, device=dev)
+    reloaded.load_state_dict(saved["model"])
+    fresh = driver.init_model(cfg, 0, dev)
+    frozen = frozen_names(fresh)
+    init = fresh.state_dict()
+    moved = [k for k in frozen if not torch.equal(saved["model"][k], init[k].cpu())]
+    check(not moved, f"the launcher moved frozen parameters {moved[:5]}")
+    trainable = [k for k, _ in fresh.named_parameters() if k not in frozen]
+    trained = [k for k in trainable if not torch.equal(saved["model"][k], init[k].cpu())]
+    # a bias whose gradient cancels (nq_net.conv3's) or is tiny may not move
+    check(len(trained) >= 0.95 * len(trainable),
+          f"{len(trained)} of {len(trainable)} trainable parameters moved")
+    del reloaded, fresh, init
+
+    ms = [start.elapsed_time(steps[0][1])] + [
+        a[1].elapsed_time(b[1]) for a, b in zip(steps, steps[1:])]
+    test_frames = sum(val_lengths.values())
+    test_s = t_end - calls[0]["t0"]
+    print(f"train+test launcher: load_train_roidb {len(roidb)} records ({n_det} DET, flipped "
+          f"copies included) in {roidb_s:.3f} s; host chain per sample (720x1280 video frame "
+          f"with its two key frames, MV and residual; 375x500 DET image) "
+          f"{chain_ms['video']:.1f} / {chain_ms['DET']:.1f} ms; a step through NCCL at world "
+          f"size 1 equals the plain step (metrics {met_err:.2e} relative, parameters "
+          f"{par_err:.2e} of max(1, |p|); two plain steps differ by {spread:.2e}) in "
+          f"{check_launches} launches; all_reduce_gradients over {n_grads} gradients "
+          f"{reduce_ms:.3f} ms (median of 10)")
+    print(f"train+test launcher: main(--max-steps 4) under NCCL world size 1 in {wall:.2f} s: "
+          f"train steps at {[s[3][1:3] for s in steps]}, ms per step "
+          f"{[round(x, 2) for x in ms]} (the first includes the warm-up and the loader's first "
+          f"batch), peak memory {peak / 2**30:.2f} GiB; {summary[0]}; checkpoint epoch 1 "
+          f"reloads, {len(frozen)} frozen parameters unchanged, {len(trained)} of "
+          f"{len(trainable)} trainable moved; run_test on the trained model over 2 videos of 24 "
+          f"and 18 frames (val_b's last past its stream, through read_image and the host "
+          f"chain): mAP@0.5 {mean_ap:.4f} over {int(np.isfinite(ap).sum())} classes, "
+          f"{test_frames} frames from the first window to the end in {test_s:.3f} s = "
+          f"{test_frames / test_s:.1f} frames/s; nms kernel launches {launches} (4 train steps "
+          f"+ 4 x 3 GOPs + 2 x 6 tail frames)")
+    return {"ddp_world1_steps": check_launches, "train_test_train": 4,
+            "train_test_test": test_launches}, err
+
+
 def main():
+    import os
+
+    # CUPTI stays set up between profiled windows: by default it is torn
+    # down after each and set up again lazily, which PyTorch itself turns
+    # off once CUDA graphs are captured (phase 3 captures some)
+    os.environ["TEARDOWN_CUPTI"] = "0"
     import torch
 
     if not torch.cuda.is_available():
@@ -1569,7 +1950,10 @@ def main():
         check(torch.equal(conv, want_conv), f"kernel converged != plain on {name}")
         bsz, n = valid.shape
         csize = nms_cuda.cluster_size(bsz, n, dev)
-        checked.append((name, b, v, thresh, sweeps, timed))
+        kernels, nodes = graph_kernels(lambda: nms_cuda.greedy_alive_cuda(b, v, thresh, sweeps))
+        check((kernels, nodes) == ((1, 1) if n <= nms_cuda.FUSED_MAX_N else (2, 2)),
+              f"{name}: one call captured {kernels} kernels in {nodes} graph nodes")
+        checked.append((name, b, v, thresh, sweeps, timed, kernels))
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1579,7 +1963,7 @@ def main():
             check(extra <= 2 * 512 + bsz * n, f"{name}: the fused path allocated {extra} bytes")
         line = (f"kernel vs plain: {name} t={thresh} sweeps={sweeps}: masks and converged equal "
                 f"({int(got.sum())} alive, {int(conv.sum())}/{bsz} converged); cluster {csize}, "
-                f"{extra} bytes allocated")
+                f"{kernels} kernel launch(es) per call (CUDA graph), {extra} bytes allocated")
         if timed:
             k_ms = cuda_ms(lambda: nms_cuda.greedy_alive_cuda(b, v, thresh, sweeps))
             p_ms = cuda_ms(lambda: greedy_alive(b, v, thresh, sweeps))
@@ -1695,29 +2079,37 @@ def main():
         launcher_launches = launcher_phase(dev, nms_cuda, scratch, ckpts["LSFA"])
         warm_launches, warm_err = warm_start_phase(dev, get_default_config(), nms_cuda,
                                                    greedy_alive, scratch, ckpts["R-FCN"])
-    max_err = max(max_err, rt_err, warm_err)
+        # 22: the train+test launcher over a DET+VID tree, under NCCL
+        tt_launches, tt_err = train_test_phase(dev, nms_cuda, greedy_alive, scratch)
+    max_err = max(max_err, rt_err, warm_err, tt_err)
     check(torch.backends.cudnn.allow_tf32 is True,
           "torch.backends.cudnn.allow_tf32 was left changed by the package")
 
-    # 22. launches and device time by torch.profiler, last: after a profiled
-    # window the host's launches stay slower, which would bias phases 3-21
+    # 23. launches and device time by torch.profiler, last: after a profiled
+    # window the host's launches stay slower, which would bias phases 3-22
     rfcn_account(dev)
     timed = iter(shapes)
-    for name, b, v, thresh, sweeps, is_timed in checked:
+    for name, b, v, thresh, sweeps, is_timed, kernels in checked:
+        entry = next(timed) if is_timed else None
         names, _ = device_kernels(lambda: nms_cuda.greedy_alive_cuda(b, v, thresh, sweeps))
-        check(len(names) == (1 if v.shape[1] <= nms_cuda.FUSED_MAX_N else 2),
-              f"{name}: one call ran the device kernels {names}")
+        if not names:
+            print(f"profiled: {name}: {NOT_TRACED}")
+            continue
+        check(len(names) == kernels,
+              f"{name}: one call ran the device kernels {names}, its graph {kernels}")
         line = f"profiled: {name}: {len(names)} kernel launch(es) per call"
         if is_timed:
-            entry = next(timed)
             _, dev_us = device_kernels(lambda: nms_cuda.greedy_alive_cuda(b, v, thresh, sweeps), 20)
             # num_sweeps = 0: the build and the one sweep that tests the exit
             _, build_us = device_kernels(lambda: nms_cuda.greedy_alive_cuda(b, v, thresh, 0), 20)
-            entry.update(device_us=dev_us, device_us_sweeps0=build_us,
-                         device_share_of_bound=entry["bound_us"] / dev_us)
-            line += (f", {dev_us:.1f} us on the device (mean of 20), "
-                     f"{entry['device_share_of_bound']:.3f} of the bound; with num_sweeps=0 "
-                     f"(build and one test sweep) {build_us:.1f} us")
+            if dev_us is None or build_us is None:
+                line += f"; {NOT_TRACED}"
+            else:
+                entry.update(device_us=dev_us, device_us_sweeps0=build_us,
+                             device_share_of_bound=entry["bound_us"] / dev_us)
+                line += (f", {dev_us:.1f} us on the device (mean of 20), "
+                         f"{entry['device_share_of_bound']:.3f} of the bound; with num_sweeps=0 "
+                         f"(build and one test sweep) {build_us:.1f} us")
         print(line)
 
     rpn = next(s for s in shapes if s["shape"] == [12, 2048])
@@ -1727,14 +2119,16 @@ def main():
         "replaces": "lsfa_tpu/ops/pallas_nms.py:97",
         "launches": (launches + train_launches + serve_launches + rfcn_launches + bn_launches
                      + sum(eval_launches.values()) + sum(rt_launches.values())
-                     + sum(launcher_launches.values()) + warm_launches),
+                     + sum(launcher_launches.values()) + warm_launches
+                     + sum(tt_launches.values())),
         "max_abs_err": max_err,
         "ms": rpn["us"] / 1e3, "plain_ms": rpn["plain_us"] / 1e3,
         "bound_ms": rpn["bound_us"] / 1e3, "bound_by": rpn["bound_by"], "library_ms": None,
         "launches_by_path": {"streaming": launches, "train": train_launches,
                              "rfcn_serve": serve_launches, "rfcn_train": rfcn_launches,
                              "train_bn": bn_launches, **eval_launches, **rt_launches,
-                             **launcher_launches, "warm_train": warm_launches},
+                             **launcher_launches, "warm_train": warm_launches,
+                             **tt_launches},
         "shapes": shapes}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

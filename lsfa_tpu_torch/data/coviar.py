@@ -167,6 +167,17 @@ class VideoReader:
     def gop_frames(self, gop_idx: int) -> int:
         return self._lib.coviar_gop_frames(self._h, gop_idx)
 
+    def get_num_frames(self) -> int:
+        return self.num_frames
+
+    def load(self, gop_idx: int, pos_in_gop: int, representation: int) -> np.ndarray:
+        """One frame's BGR uint8 image (representation 0), accumulated MV
+        int32 (H, W, 2) (1) or residual int32 (H, W, 3) (2), copied out
+        of the GOP cache."""
+        if representation not in (0, 1, 2):
+            raise ValueError(f"bad representation {representation}")
+        return self.decode_gop(gop_idx)[representation][pos_in_gop].copy()
+
     def _err(self) -> str:
         """Native-side diagnostic for the last failed call (': msg' suffix
         for IOError text; '' if the .so predates coviar_last_error)."""
@@ -360,19 +371,11 @@ def load(path: str, gop_idx: int, pos_in_gop: int, representation: int,
          accumulate: bool = True) -> np.ndarray:
     """Reference-parity one-shot loader (but GOP-cached underneath)."""
     assert accumulate, "only accumulated MV/residual are supported"
-    r = _reader(path)
-    bgr, mv, res = r.decode_gop(gop_idx)
-    if representation == 0:
-        return bgr[pos_in_gop].copy()
-    if representation == 1:
-        return mv[pos_in_gop].copy()
-    if representation == 2:
-        return res[pos_in_gop].copy()
-    raise ValueError(f"bad representation {representation}")
+    return _reader(path).load(gop_idx, pos_in_gop, representation)
 
 
 def get_num_frames(path: str) -> int:
-    return _reader(path).num_frames
+    return _reader(path).get_num_frames()
 
 
 def get_num_gops(path: str) -> int:

@@ -1,9 +1,25 @@
 """Batch assembly and the per-video data plane, the counterparts of
-``lsfa_tpu.data.loader`` without PIL: train batch collation with seeded
-synthetic train batches shaped like its output, `PreparedVideo` over the
-native decoder, its seeded stand-in `SyntheticPreparedVideo` for machines
-that cannot load the decoder, and `EvalLoader`, the frame-by-frame
-iterator with the key-frame schedule.
+``lsfa_tpu.data.loader`` without a module-level PIL import:
+
+  * training: `load_pair_sample` (one sample of the get_pair_image
+    contract, from the native decoder's one-call fast path or the host
+    image chain of ``data/image.py``), `collate_train_batch`, and
+    `TrainLoader`, the shuffling epoch iterator with worker threads, which
+    loads each rank's slice of a global batch; seeded synthetic train
+    batches shaped like its output;
+  * readers: a video reader has ``get_num_frames()`` and
+    ``load(gop, pos, representation)`` (0: BGR uint8 frame, 1: int MV
+    (H, W, 2), 2: int residual (H, W, 3)); `open_native_video` opens the
+    native decoder's, `SyntheticVideoReader` is its seeded stand-in, and
+    `read_jpeg_bgr` reads a still image (importing PIL when called);
+  * evaluation: `PreparedVideo` over the native decoder, its seeded
+    stand-in `SyntheticPreparedVideo`, and `EvalLoader`, the frame-by-frame
+    iterator with the key-frame schedule.
+
+The loaders take `open_video` and `read_image` as parameters: a machine
+without FFmpeg cannot load the decoder, and one without PIL cannot read
+JPEGs. Where JAX silently reads a video record's JPEG because the decoder
+does not load (training only the key path), the port raises.
 
 A batch is a dict of host arrays: data, data_ref, data_ref_old (B, H, W, 3)
 raw BGR frames padded to the bucket; motion_vector (B, fh, fw, 2) and
@@ -14,15 +30,219 @@ res_diff (B, fh, fw, 3) float32 grids at stride 16; eq_flag, eq_flag_old
 
 from __future__ import annotations
 
+import os
+import queue
+import threading
 import zlib
 
 import numpy as np
 import torch
 
 from lsfa_tpu_torch.data import coviar
-from lsfa_tpu_torch.data.image import pad_to_bucket, small_pool_factor
+from lsfa_tpu_torch.data.image import (
+    bgr_to_i420, pad_to_bucket, pick_bucket, resize, small_pool_factor, transform_mv_res)
 
 GOP_SIZE = 12
+
+
+def read_jpeg_bgr(path: str) -> np.ndarray:
+    """A still image as HxWx3 float32 BGR (PIL is imported here, so that a
+    machine without it can import this module and pass its own reader)."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        rgb = np.asarray(im.convert("RGB"), np.uint8)
+    return rgb[:, :, ::-1].astype(np.float32)
+
+
+def open_native_video(path: str):
+    """The native decoder's reader of `path` (one cached handle per path).
+    Raises where the library does not load, naming the `open_video`
+    parameter that takes a reader in its place, and where the file does
+    not exist."""
+    if not coviar.available():
+        raise RuntimeError(f"{coviar.MISSING}; pass open_video (a callable that opens a "
+                           f"reader, e.g. SyntheticVideoReader) to read {path}")
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no compressed stream at {path}")
+    return coviar._reader(path)
+
+
+class SyntheticVideoReader:
+    """A seeded stand-in for the native decoder's reader of one stream,
+    for machines where it does not load: `get_num_frames()` and
+    `load(gop, pos, representation)` at the record's height and width.
+    Frame (gop, pos) is drawn from (seed, gop, pos), so it is the same in
+    whatever order it is asked for; seed defaults to a checksum of the
+    path. Frames are uniform BGR uint8; MVs are constant over 16x16
+    macroblocks, a few pixels long; residuals small ints; a GOP's key
+    frame (pos 0) has zero MV and residual, as a decoded I-frame."""
+
+    def __init__(self, path: str, height: int, width: int, num_frames: int = 1 << 30,
+                 seed: int | None = None):
+        self.path = path
+        self.height, self.width = int(height), int(width)
+        self.num_frames = num_frames
+        self.seed = zlib.crc32(str(path).encode()) if seed is None else seed
+
+    def get_num_frames(self) -> int:
+        return self.num_frames
+
+    def load(self, gop_idx: int, pos_in_gop: int, representation: int) -> np.ndarray:
+        fid = gop_idx * GOP_SIZE + pos_in_gop
+        if not 0 <= pos_in_gop < GOP_SIZE or not 0 <= fid < self.num_frames:
+            raise IndexError(f"frame ({gop_idx}, {pos_in_gop}) of a "
+                             f"{self.num_frames}-frame stream")
+        rng = np.random.default_rng([self.seed, gop_idx, pos_in_gop, representation])
+        h, w = self.height, self.width
+        if representation == 0:
+            return rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        if representation not in (1, 2):
+            raise ValueError(f"bad representation {representation}")
+        chans = 2 if representation == 1 else 3
+        if pos_in_gop == 0:
+            return np.zeros((h, w, chans), np.int32)
+        if representation == 2:
+            return rng.integers(-24, 25, (h, w, 3), dtype=np.int32)
+        blocks = rng.integers(-6, 7, (-(-h // 16), -(-w // 16), 2), dtype=np.int32)
+        return np.repeat(np.repeat(blocks, 16, axis=0), 16, axis=1)[:h, :w]
+
+
+def load_pair_sample(rec, cfg, rng: np.random.Generator, bucket_hw=None, open_video=None,
+                     read_image=None):
+    """One training sample of the get_pair_image contract
+    (lib/utils/image.py:92-200): the current frame, its GOP's key frame
+    (ref), the previous GOP's key frame (old ref), the accumulated MV and
+    residual; eq_flag 1 when the pair degenerates to the key path (a key
+    frame, or a drawn reference offset of 0), eq_flag_old 1 in the first
+    GOP. Returns a dict of host arrays: data, data_ref, data_ref_old
+    (1, H, W, 3), eq_flag, eq_flag_old, motion_vector (1, fh, fw, 2),
+    res_diff (1, fh, fw, 3), im_info (3,), gt_boxes (G, 5) scaled.
+
+    A video record ("pattern" in rec) is read through
+    open_video(video_path) (`open_native_video` when None); other records
+    and a frame past the stream's end through read_image(path)
+    (`read_jpeg_bgr` when None). When the reader has
+    `decode_train_sample` (the native decoder) and bucket_hw is given, the
+    whole sample comes from that one call at the bucket (the fast path);
+    else the host chain of ``data/image.py`` runs. The two paths draw
+    from `rng` in JAX's orders, which differ: the fast path the scale,
+    then the reference offset; the host chain the offset, then the scale."""
+    read_image = read_image or read_jpeg_bgr
+    means = cfg.network.PIXEL_MEANS
+    scale = cfg.network.PIXEL_SCALE
+    stride = cfg.network.RCNN_FEAT_STRIDE
+    legacy_swap = bool(getattr(cfg.network, "res_diff_legacy_swap", False))
+    eq_flag, eq_flag_old = 0.0, 0.0
+    im_h, im_w = int(rec["height"]), int(rec["width"])
+    mv = np.zeros((im_h, im_w, 2), np.float32)
+    res = np.zeros((im_h, im_w, 3), np.float32)
+    reader = None
+    if "pattern" in rec:
+        video = rec.get("video_path")
+        if not video:                          # the reference asserts (lib/utils/image.py:130)
+            raise FileNotFoundError(f"video record {rec.get('image', '?')} has no readable "
+                                    f"compressed stream (video_path={video!r})")
+        reader = (open_video or open_native_video)(video)
+
+    if (reader is not None and bucket_hw is not None and hasattr(reader, "decode_train_sample")
+            and rec["frame_seg_id"] < reader.get_num_frames()):
+        cur_id = rec["frame_seg_id"]
+        target, max_size = cfg.SCALES[int(rng.integers(len(cfg.SCALES)))]
+        data, ref, old, mv_t, res_t, info, pos = reader.decode_train_sample(
+            cur_id, bucket_hw, target, max_size, means, scale, stride=stride,
+            legacy_swap=legacy_swap, flip=bool(rec.get("flipped")))
+        ref_id = int(np.clip(cur_id + rng.integers(cfg.TRAIN.MIN_OFFSET, cfg.TRAIN.MAX_OFFSET + 1),
+                             0, rec["frame_seg_len"] - 1))
+        if pos == 0 or ref_id == cur_id:       # degenerate pair: the key path
+            eq_flag = 1.0
+            ref = old = data
+            mv_t = np.zeros_like(mv_t)
+            res_t = zero_residual_grid(res_t.shape, info, means, scale, stride,
+                                       legacy_swap=legacy_swap)
+        elif cur_id - pos == 0:                # first GOP: old ref == ref
+            eq_flag_old = 1.0
+        if eq_flag == 0.0 and "oracle" in rec and getattr(cfg.network, "oracle_mv", False):
+            # the generator's analytic flow replaces the decoded MV grid
+            from lsfa_tpu_torch.data.oracle_flow import oracle_mv_grid
+            mv_t = oracle_mv_grid(rec["oracle"], cur_id, cur_id - pos, mv_t.shape[0],
+                                  mv_t.shape[1], float(info[2]), stride, (im_h, im_w),
+                                  flip=bool(rec.get("flipped")))
+        im_scale = float(info[2])
+        boxes = rec["boxes"] * im_scale        # stored flipped already (append_flipped)
+        gt = np.concatenate([boxes, rec["gt_classes"][:, None].astype(np.float32)], axis=1)
+        return {"data": data[None], "data_ref": ref[None], "data_ref_old": old[None],
+                "eq_flag": eq_flag, "eq_flag_old": eq_flag_old,
+                "motion_vector": mv_t[None], "res_diff": res_t[None],
+                "im_info": np.asarray([info[0], info[1], im_scale], np.float32),
+                "gt_boxes": gt}
+
+    if reader is not None:
+        cur_id = rec["frame_seg_id"]
+        gop_id, pos_id = cur_id // GOP_SIZE, cur_id % GOP_SIZE
+        # random reference offset in [MIN_OFFSET, MAX_OFFSET] (image.py:124)
+        ref_id = int(np.clip(cur_id + rng.integers(cfg.TRAIN.MIN_OFFSET, cfg.TRAIN.MAX_OFFSET + 1),
+                             0, rec["frame_seg_len"] - 1))
+        if cur_id >= reader.get_num_frames():  # stream shorter than the annotation
+            im = read_image(rec["image"])
+            ref = old_ref = im.copy()
+            eq_flag = 1.0
+        else:
+            im = reader.load(gop_id, pos_id, 0).astype(np.float32)
+            if pos_id == 0 or ref_id == cur_id:
+                ref = old_ref = im.copy()
+                eq_flag = 1.0
+            else:
+                old_gop = max(gop_id - 1, 0)
+                eq_flag_old = 1.0 if old_gop == gop_id else 0.0
+                ref = reader.load(gop_id, 0, 0).astype(np.float32)
+                old_ref = reader.load(old_gop, 0, 0).astype(np.float32)
+                mv = -reader.load(gop_id, pos_id, 1).astype(np.float32)
+                res = reader.load(gop_id, pos_id, 2).astype(np.float32)
+    else:
+        im = read_image(rec["image"])
+        ref = old_ref = im.copy()
+        eq_flag = 1.0
+
+    if rec.get("flipped"):
+        im, ref, old_ref, res = im[:, ::-1], ref[:, ::-1], old_ref[:, ::-1], res[:, ::-1]
+        mv = mv[:, ::-1].copy()
+        mv[:, :, 0] = -mv[:, :, 0]
+
+    # multi-scale: one entry of SCALES per image (lib/utils/image.py:183);
+    # raw resized BGR, normalized on the device
+    target, max_size = cfg.SCALES[int(rng.integers(len(cfg.SCALES)))]
+    im_r, im_scale = resize(im, target, max_size)
+    ref_r, _ = resize(ref, target, max_size)
+    old_r, _ = resize(old_ref, target, max_size)
+    mv_t, res_t = transform_mv_res(mv, res, im_scale, means, scale, stride,
+                                   legacy_swap=legacy_swap)
+    boxes = rec["boxes"] * im_scale
+    gt = np.concatenate([boxes, rec["gt_classes"][:, None].astype(np.float32)], axis=1)
+    return {"data": im_r[None], "data_ref": ref_r[None], "data_ref_old": old_r[None],
+            "eq_flag": eq_flag, "eq_flag_old": eq_flag_old,
+            "motion_vector": mv_t, "res_diff": res_t,
+            "im_info": np.asarray([im_r.shape[0], im_r.shape[1], im_scale], np.float32),
+            "gt_boxes": gt}
+
+
+def zero_residual_grid(shape, info, pixel_means, pixel_scale, stride: int = 16,
+                       legacy_swap: bool = False):
+    """The residual grid a zero raw residual gives: the channel transform
+    runs after padding, so valid cells carry (0 - mean) * scale constants,
+    not zeros (what the reference feeds at I-frames and degenerate pairs).
+    Bucket-pad cells stay zero."""
+    fh, fw, _ = shape
+    sh, sw = float(info[0]), float(info[1])
+    gh = int(np.ceil(sh / stride))
+    gw = int(np.ceil(sw / stride))
+    mB, mG, mR = [float(m) for m in pixel_means]
+    o0 = (0.0 - mR) * pixel_scale
+    o1 = (0.0 - mG) * pixel_scale
+    o2 = (o0 - mB) * pixel_scale if legacy_swap else (0.0 - mB) * pixel_scale
+    out = np.zeros((fh, fw, 3), np.float32)
+    out[:gh, :gw] = (o0, o1, o2)
+    return out
 
 
 def collate_train_batch(samples, bucket_hw, max_gt: int = 100,
@@ -55,6 +275,125 @@ def collate_train_batch(samples, bucket_hw, max_gt: int = 100,
     out["gt_boxes"] = gt
     out["gt_valid"] = gtv
     return out
+
+
+class TrainLoader:
+    """Shuffling epoch iterator with worker threads (AnchorLoader and
+    MultiThreadPrefetchingIter in the reference), over global batches of
+    `batch_size` records.
+
+    Records are grouped by the bucket their resized shape fits (portrait
+    or landscape), and every batch is drawn from one group;
+    TRAIN.ASPECT_GROUPING interleaves the groups' batches (the reference's
+    order) or leaves them group after group. Every rank draws the same
+    epoch plan from `seed`, so `len()` is the same on every rank; rank r of
+    `world_size` loads and collates only its contiguous slice of each
+    global batch, rows [r * b, (r + 1) * b) with b = batch_size //
+    world_size. Each worker draws from its own generator, seeded before
+    the threads start (rank 0's seeds are the JAX package's), and workers
+    take batches in plan order; batches are yielded in plan order too
+    (JAX yields them as they finish, which differs only with more than one
+    worker, where which worker draws for which batch is a race in both).
+    A worker's exception is raised by the iterator, and the threads end
+    when the iterator is exhausted, closed or dropped. open_video and
+    read_image are passed to `load_pair_sample`."""
+
+    def __init__(self, roidb, cfg, batch_size: int, bucket_hw=None, seed: int = 0,
+                 prefetch: int = 2, num_workers: int = 2, open_video=None, read_image=None,
+                 rank: int = 0, world_size: int = 1):
+        if batch_size % world_size or not 0 <= rank < world_size:
+            raise ValueError(f"a global batch of {batch_size} over {world_size} ranks "
+                             f"(rank {rank})")
+        self.roidb = roidb
+        self.cfg = cfg
+        self.batch_size = batch_size
+        self.max_gt = cfg.tpu.max_gt_boxes
+        self.rng = np.random.default_rng(seed)
+        self.prefetch = prefetch
+        self.num_workers = num_workers
+        self.open_video = open_video
+        self.read_image = read_image
+        self.rank, self.world_size = rank, world_size
+        self.buckets = ([tuple(bucket_hw)] if bucket_hw is not None
+                        else [tuple(b) for b in cfg.tpu.image_buckets])
+        # the bucket under the largest scale: any sampled SCALES entry fits
+        tgt = max(s[0] for s in cfg.SCALES)
+        mx = max(s[1] for s in cfg.SCALES)
+        self._rec_bucket = np.asarray([
+            self.buckets.index(pick_bucket(int(r["height"]), int(r["width"]), self.buckets,
+                                           tgt, mx))
+            for r in roidb])
+
+    def __len__(self):
+        return sum(int(np.sum(self._rec_bucket == bi)) // self.batch_size
+                   for bi in range(len(self.buckets)))
+
+    def _epoch_batches(self):
+        """(bucket index, record indices) of each global batch."""
+        batches = []
+        for bi in range(len(self.buckets)):
+            idxs = np.nonzero(self._rec_bucket == bi)[0]
+            if self.cfg.TRAIN.SHUFFLE:
+                self.rng.shuffle(idxs)
+            for i in range(len(idxs) // self.batch_size):
+                batches.append((bi, idxs[i * self.batch_size:(i + 1) * self.batch_size]))
+        if self.cfg.TRAIN.SHUFFLE and self.cfg.TRAIN.ASPECT_GROUPING:
+            self.rng.shuffle(batches)
+        return batches
+
+    def __iter__(self):
+        batches = self._epoch_batches()
+        seeds = [int(self.rng.integers(2**31)) for _ in range(self.num_workers)]
+        local = self.batch_size // self.world_size
+        lo = self.rank * local
+        todo: queue.Queue = queue.Queue()
+        for i, (bi, idxs) in enumerate(batches):
+            todo.put((i, bi, idxs[lo:lo + local]))
+        done: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+
+        def offer(item):
+            while not stop.is_set():
+                try:
+                    done.put(item, timeout=0.05)
+                    return
+                except queue.Full:
+                    continue
+
+        def worker(wid):
+            wrng = np.random.default_rng(seeds[wid] + (self.rank << 31))
+            try:
+                while not stop.is_set():
+                    try:
+                        i, bi, idxs = todo.get_nowait()
+                    except queue.Empty:
+                        return
+                    samples = [load_pair_sample(self.roidb[j], self.cfg, wrng,
+                                                bucket_hw=self.buckets[bi],
+                                                open_video=self.open_video,
+                                                read_image=self.read_image)
+                               for j in idxs]
+                    offer((i, collate_train_batch(samples, self.buckets[bi], self.max_gt)))
+            except Exception as e:          # raised again by the consumer
+                offer((-1, e))
+
+        threads = [threading.Thread(target=worker, args=(w,), daemon=True)
+                   for w in range(self.num_workers)]
+        for t in threads:
+            t.start()
+        try:
+            ready = {}
+            for i in range(len(batches)):
+                while i not in ready:
+                    j, item = done.get()
+                    if isinstance(item, Exception):
+                        raise item
+                    ready[j] = item
+                yield ready.pop(i)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join()
 
 
 def synthetic_sample(rng: np.random.Generator, content_hw, num_classes: int,
@@ -302,29 +641,59 @@ class SyntheticPreparedVideo(_GopPayloads):
         return frames, smalls, mv, res, np.asarray([ch, cw, self.im_scale], np.float32)
 
 
-HOST_CHAIN = ("the host image chain (JPEG frames, resize, MV and residual transform) is "
-              "not ported yet: ROADMAP.md, Queue 1 item 5 (training data)")
-
-
 class EvalLoader:
     """Frame-by-frame video iterator with the key-frame schedule: yields
     the dicts ``StreamingDetector.process_frame`` and
     ``RFCNDetector.detect`` consume (video_index, frame_id, flag 0 stream
     start / 1 key / 2 non-key, data, small, im_info, motion_vector,
-    res_diff), served by the prepared data plane."""
+    res_diff). Frames come from the prepared data plane; a frame past the
+    stream's end (the reference meets one at every video's last frame)
+    from read_image(pattern % frame) through the host image chain, with
+    zero MV and residual, in the stream's wire format. A record without a
+    compressed stream raises: the port reads video frames from the
+    stream, where JAX would read every frame's JPEG."""
 
     def __init__(self, video_roidb, cfg, bucket_hw=None,
-                 full_frames: bool = False, open_video=None):
+                 full_frames: bool = False, open_video=None, read_image=None):
         """full_frames: every frame ships full-res `data` (single-frame
         detectors); the default lets the data plane skip non-key resizes.
         open_video: a callable with `PreparedVideo`'s signature that opens
-        each record's stream (default: `PreparedVideo`)."""
+        each record's stream (default: `PreparedVideo`). read_image: reads
+        a frame past the stream's end (default: `read_jpeg_bgr`)."""
         self.roidb = video_roidb          # one rec per video (seg_len frames)
         self.cfg = cfg
         self.bucket_hw = tuple(bucket_hw or cfg.tpu.default_bucket)
         self.key_interval = cfg.TEST.KEY_FRAME_INTERVAL
         self.full_frames = full_frames
         self.open_video = open_video or PreparedVideo
+        self.read_image = read_image or read_jpeg_bgr
+
+    def _host_frame(self, path, wire_format):
+        """(data, small, im_info, mv, res) of one image through the host
+        chain, as the prepared plane would ship it with zero MV and
+        residual."""
+        cfg = self.cfg
+        target, max_size = cfg.SCALES[0]
+        bh, bw = self.bucket_hw
+        im = self.read_image(path)
+        im_r, im_scale = resize(im, target, max_size)
+        # raw BGR uint8 padded to the bucket (normalized on the device)
+        data = pad_to_bucket(np.clip(np.round(im_r), 0, 255).astype(np.uint8)[None],
+                             self.bucket_hw)
+        # the small net's input: the padded frame's block mean
+        f = small_pool_factor(cfg.network.small_net_stride)
+        small = np.clip(np.round(data.astype(np.float32).reshape(
+            1, bh // f, f, bw // f, f, 3).mean((2, 4))), 0, 255).astype(np.uint8)
+        if wire_format == "i420":           # one wire format per video
+            data, small = bgr_to_i420(data), bgr_to_i420(small)
+        h, w = im.shape[:2]
+        mv_t, res_t = transform_mv_res(
+            np.zeros((h, w, 2), np.float32), np.zeros((h, w, 3), np.float32), im_scale,
+            cfg.network.PIXEL_MEANS, cfg.network.PIXEL_SCALE,
+            legacy_swap=bool(getattr(cfg.network, "res_diff_legacy_swap", False)))
+        fb = (bh // 16, bw // 16)
+        info = np.asarray([[im_r.shape[0], im_r.shape[1], im_scale]], np.float32)
+        return data, small, info, pad_to_bucket(mv_t, fb), pad_to_bucket(res_t, fb)
 
     def __iter__(self):
         cfg = self.cfg
@@ -337,7 +706,8 @@ class EvalLoader:
             if video is None:
                 raise NotImplementedError(
                     f"record {rec.get('vid_path', vid_idx)!r} has no compressed stream "
-                    f"(video_path): {HOST_CHAIN}")
+                    f"(video_path): the port reads a video's frames from its stream, and "
+                    f"takes images only for frames past the stream's end")
             prep = self.open_video(
                 video, cfg, self.bucket_hw,
                 frames_mode=0 if self.full_frames else None,
@@ -349,12 +719,11 @@ class EvalLoader:
                     flag = 1
                 else:
                     flag = 2
-                if fid >= prep.num_frames:
-                    raise NotImplementedError(
-                        f"frame {fid} of {video} lies past the stream's end "
-                        f"({prep.num_frames} frames): {HOST_CHAIN}")
-                data, small, mv, res, info = prep.frame(fid)
+                if fid < prep.num_frames:
+                    data, small, mv, res, info = prep.frame(fid)
+                else:
+                    data, small, info, mv, res = self._host_frame(rec["pattern"] % fid,
+                                                                  prep.wire_format)
                 yield {"video_index": vid_idx, "frame_id": fid, "flag": flag,
                        "data": data, "small": small, "im_info": info,
                        "motion_vector": mv, "res_diff": res}
-

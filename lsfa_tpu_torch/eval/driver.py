@@ -13,7 +13,9 @@ across the video roidb in its order, which `evaluate_map` scores.
 The loops open a record's stream with ``data.loader.PreparedVideo``,
 which needs the native decoder. On a machine where it does not load, pass
 `open_video`, a callable with `PreparedVideo`'s signature, such as a
-``functools.partial`` of ``data.loader.SyntheticPreparedVideo``.
+``functools.partial`` of ``data.loader.SyntheticPreparedVideo``. A frame
+past the end of its stream is read with `read_image` (default: the JPEG
+reader, which needs PIL) through the host image chain.
 
 Against the JAX package: the last window of a video is not padded to the
 window length (an eager detector has no fixed window shape; the padded
@@ -173,7 +175,8 @@ def _post_window(pending, detections, timer) -> int:
     return len(win) * (1 + cd.shape[1])
 
 
-def _eval_frames(det, frame_recs, cfg, bucket, base, detections, timer, budget, open_video):
+def _eval_frames(det, frame_recs, cfg, bucket, base, detections, timer, budget, open_video,
+                 read_image):
     """The per-frame path over whole videos and partial-GOP tails: each
     record restarts the detector, and a tail's first frame, a key frame,
     bootstraps it with flag 0 like a fresh stream. Stops after `budget`
@@ -181,7 +184,8 @@ def _eval_frames(det, frame_recs, cfg, bucket, base, detections, timer, budget, 
     done = 0
     if not frame_recs or (budget is not None and budget <= 0):
         return done
-    loader = EvalLoader(frame_recs, cfg, bucket_hw=bucket, open_video=open_video)
+    loader = EvalLoader(frame_recs, cfg, bucket_hw=bucket, open_video=open_video,
+                        read_image=read_image)
     with DevicePrefetcher(loader, det.device, depth=2) as items:
         cur_video = -1
         for item in items:
@@ -206,7 +210,8 @@ def _eval_frames(det, frame_recs, cfg, bucket, base, detections, timer, budget, 
 
 
 def eval_videos(model, cfg, video_roidb, det_cache: str | None = None, logger=None,
-                max_frames: int | None = None, lt_off: bool = False, open_video=None):
+                max_frames: int | None = None, lt_off: bool = False, open_video=None,
+                read_image=None):
     """Streaming detection over videos, bucketed by orientation. Returns
     {global frame index -> {labels, scores, boxes}}, indexed in the
     original video_roidb frame order.
@@ -217,7 +222,7 @@ def eval_videos(model, cfg, video_roidb, det_cache: str | None = None, logger=No
     that many frames are filed (checked after each video's windows and
     each per-frame step). lt_off: every key frame bootstraps, which turns
     long-term aggregation off at inference on the same weights.
-    open_video: see the module docstring."""
+    open_video, read_image: see the module docstring."""
     log = logger.info if logger else print
     cached = load_det_cache(det_cache, log)
     if cached is not None:
@@ -257,7 +262,8 @@ def eval_videos(model, cfg, video_roidb, det_cache: str | None = None, logger=No
                 break
         frame_counter += _post_window(pending, detections, timer)
         _eval_frames(det, frame_recs, cfg, bucket, base, detections, timer,
-                     None if max_frames is None else max_frames - frame_counter, open_video)
+                     None if max_frames is None else max_frames - frame_counter, open_video,
+                     read_image)
     log(timer.summary())
     save_det_cache(det_cache, detections)
     return detections
@@ -266,7 +272,7 @@ def eval_videos(model, cfg, video_roidb, det_cache: str | None = None, logger=No
 def eval_videos_timeplex(model, cfg, video_roidb, streams: int = 3,
                          det_cache: str | None = None, logger=None,
                          max_frames: int | None = None, lt_off: bool = False,
-                         open_video=None):
+                         open_video=None, read_image=None):
     """`eval_videos` for several streams at once by time-multiplexing:
     each stream keeps its own device-resident recurrent state, and windows
     of different streams take turns through the one detector, which swaps
@@ -371,14 +377,15 @@ def eval_videos_timeplex(model, cfg, video_roidb, streams: int = 3,
         for s in range(n_streams):
             frame_recs += [_tail_record(rec, start, base) for rec, start in tails[s]]
         _eval_frames(det, frame_recs, cfg, bucket, base, detections, timer,
-                     None if max_frames is None else max_frames - frame_counter, open_video)
+                     None if max_frames is None else max_frames - frame_counter, open_video,
+                     read_image)
     log(timer.summary())
     save_det_cache(det_cache, detections)
     return detections
 
 
 def eval_videos_rfcn(model, cfg, video_roidb, det_cache: str | None = None, logger=None,
-                     max_frames: int | None = None, open_video=None):
+                     max_frames: int | None = None, open_video=None, read_image=None):
     """The single-frame R-FCN baseline over every frame of the videos: no
     key-frame state, no motion vectors or residuals. model: an RFCN module
     with its weights. Returns the mapping `eval_videos` returns."""
@@ -395,7 +402,8 @@ def eval_videos_rfcn(model, cfg, video_roidb, det_cache: str | None = None, logg
             break
         log(f"bucket {bucket}: {len(recs)} videos (rfcn per-frame)")
         det = RFCNDetector(model, cfg, bucket)
-        loader = EvalLoader(recs, cfg, bucket_hw=bucket, full_frames=True, open_video=open_video)
+        loader = EvalLoader(recs, cfg, bucket_hw=bucket, full_frames=True, open_video=open_video,
+                            read_image=read_image)
         with DevicePrefetcher(loader, det.device, depth=2) as items:
             for item in items:
                 with timer.phase("net"):

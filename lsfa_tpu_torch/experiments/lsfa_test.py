@@ -56,17 +56,20 @@ def load_model(cfg, ckpt_dir=None, out_dir: str = "", logger=None, device=None):
 
 def run_test(cfg, ckpt_dir=None, ignore_cache=False, max_frames=None,
              vis_frames: int = 0, thresh: float | None = None, streams: int = 0,
-             open_video=None, device=None):
+             open_video=None, device=None, read_image=None, model=None):
     """Evaluate the config's model over dataset.test_image_set. Returns
     (mAP, per-class AP) of ``eval.driver.evaluate_map``.
 
     streams > 1 time-multiplexes that many streams through one detector
     (``eval_videos_timeplex``); an ``rfcn*`` symbol runs the single-frame
     R-FCN over every frame (``eval_videos_rfcn``). thresh overrides
-    TEST.SCORE_THRESH. open_video: passed to the loops (a callable with
-    ``PreparedVideo``'s signature; None opens the videos with the native
-    decoder). Detections are cached at ``<out_dir>/detections.pkl`` and
-    read back from there unless ignore_cache."""
+    TEST.SCORE_THRESH. open_video, read_image: passed to the loops (a
+    callable with ``PreparedVideo``'s signature, None opening the videos
+    with the native decoder; a reader of the frames past a stream's end,
+    None reading their JPEGs). model: evaluate this model (e.g. the one
+    ``train_net`` just trained) in place of `load_model`'s. Detections are
+    cached at ``<out_dir>/detections.pkl`` and read back from there unless
+    ignore_cache."""
     if vis_frames:
         raise NotImplementedError(
             "--vis needs an image writer without PIL (ROADMAP Queue 1 item 7)")
@@ -79,7 +82,8 @@ def run_test(cfg, ckpt_dir=None, ignore_cache=False, max_frames=None,
     logger, out_dir = create_logger(cfg.output_path, cfg.symbol, cfg.dataset.test_image_set)
     if thresh is not None:
         cfg.TEST.SCORE_THRESH = float(thresh)
-    model = load_model(cfg, ckpt_dir, out_dir, logger, device)
+    if model is None:
+        model = load_model(cfg, ckpt_dir, out_dir, logger, device)
     ds = ImageNetVID(cfg.dataset.test_image_set, cfg.dataset.root_path,
                      cfg.dataset.dataset_path)
     # one record per video, sized by its first frame's annotation (0 where
@@ -97,7 +101,8 @@ def run_test(cfg, ckpt_dir=None, ignore_cache=False, max_frames=None,
             "width": first["width"],
         })
     kw = dict(det_cache=None if ignore_cache else os.path.join(out_dir, "detections.pkl"),
-              logger=logger, max_frames=max_frames, open_video=open_video)
+              logger=logger, max_frames=max_frames, open_video=open_video,
+              read_image=read_image)
     if is_rfcn(cfg):
         dets = eval_videos_rfcn(model, cfg, video_roidb, **kw)
     elif streams > 1:

@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lsfa_tpu_torch.parallel import mesh
+
 BN_EPS = 2e-5
 BN_MOMENTUM = 0.9
 
@@ -118,11 +120,18 @@ class BatchNorm(FrozenBN):
     variance over (N, H, W), the variance as E[x^2] - E[x]^2 clamped at 0,
     and moves the running statistics to 0.9 * running + 0.1 * batch; in
     eval mode it is a FrozenBN. The update is computed here, because
-    F.batch_norm would move running_var by the unbiased variance."""
+    F.batch_norm would move running_var by the unbiased variance. Training
+    over more than one rank raises: the JAX step's statistics are the
+    global batch's, and a rank's own would silently differ."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if mesh.world_size() > 1:
+            raise NotImplementedError(
+                "train-mode BatchNorm (res_diff_bn, small_net_bn_before_fuse) over more than one "
+                "rank: its batch statistics would be each rank's, not the global batch's "
+                "(ROADMAP.md, Queue 1 item 3)")
         xf = x.float()
         mean = xf.mean(dim=(0, 2, 3))
         var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)

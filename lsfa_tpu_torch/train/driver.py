@@ -1,14 +1,14 @@
-"""The training driver on one device; the counterpart of
-``lsfa_tpu.train.driver``.
+"""The training driver; the counterpart of ``lsfa_tpu.train.driver``.
 
+`load_train_roidb` builds the DET+VID roidb the config names.
 `init_model` builds the config's model (LSFA, or the single-frame R-FCN
 for an ``rfcn*`` symbol) with random weights from a seed, applies the
 warm starts the config names (the reference's MXNet ``.params`` files,
 the port's own checkpoints) and seeds the small-net trunk from the
-backbone. `train_net`
-runs the recipe (SGD with the warm-up multi-factor schedule, per-epoch
-checkpoints, resume) over an iterable of collated host batches
-(``data.loader.collate_train_batch`` or ``synthetic_train_batches``).
+backbone. `train_net` runs the recipe (SGD with the warm-up multi-factor
+schedule, per-epoch checkpoints, resume) over a `TrainLoader` of the
+roidb, or over given collated host batches (``synthetic_train_batches``),
+on one device or data parallel over the ranks of a process group.
 """
 
 from __future__ import annotations
@@ -19,15 +19,18 @@ import time
 
 import torch
 
-from lsfa_tpu_torch.data.loader import batch_to_device
+from lsfa_tpu_torch.data.dataset import ImageNetVID, append_flipped, filter_roidb, merge_roidb
+from lsfa_tpu_torch.data.loader import TrainLoader, batch_to_device
 from lsfa_tpu_torch.eval.rfcn_tester import rfcn_from_config
 from lsfa_tpu_torch.models.lsfa import init_params, lsfa_from_config, resolve_device
+from lsfa_tpu_torch.parallel import mesh
 from lsfa_tpu_torch.train.checkpoint import (
     combine_checkpoints, load_checkpoint, save_checkpoint, seed_small_net)
 from lsfa_tpu_torch.train.import_mxnet import import_mxnet_lsfa
 from lsfa_tpu_torch.train.schedule import make_optimizer
 from lsfa_tpu_torch.train.train_step import (
     TrainSettings, draw_uniforms, make_rfcn_train_step, make_train_step)
+from lsfa_tpu_torch.utils.profiler import Speedometer
 
 
 def is_rfcn(cfg) -> bool:
@@ -121,27 +124,68 @@ def init_model(cfg, rng_seed: int = 0, device=None, logger=None):
     return model
 
 
-def train_net(cfg, batches, ckpt_dir: str | None = None, logger=None,
+def load_train_roidb(cfg):
+    """The DET+VID roidb of dataset.image_set ("+"-joined sets), each
+    video frame's record given its stream (video_path), flipped copies
+    when TRAIN.FLIP, records without gt boxes dropped
+    (train_end2end.py:76-81)."""
+    roidbs = []
+    vid_root = os.path.join(cfg.dataset.dataset_path, "Data", "VID")
+    for image_set in cfg.dataset.image_set.split("+"):
+        ds = ImageNetVID(image_set, cfg.dataset.root_path, cfg.dataset.dataset_path)
+        r = ds.gt_roidb()
+        for rec in r:
+            if "pattern" in rec:
+                rec["video_path"] = ds.video_path(
+                    {"path": os.path.relpath(os.path.dirname(rec["image"]), vid_root)})
+        if cfg.TRAIN.FLIP:
+            r = append_flipped(r)
+        roidbs.append(r)
+    return filter_roidb(merge_roidb(roidbs))
+
+
+def train_net(cfg, roidb=None, ckpt_dir: str | None = None, logger=None,
               max_steps: int | None = None, metrics_hook=None, device=None,
-              seed: int = 0, model=None):
-    """Train on `batches` (a sized iterable of collated host batches, one
-    epoch) from cfg.TRAIN.begin_epoch to end_epoch. Returns the model.
+              seed: int = 0, model=None, batches=None, open_video=None, read_image=None):
+    """Run the training recipe from cfg.TRAIN.begin_epoch to end_epoch and
+    return the model: SGD with the warm-up multi-factor schedule (lr_step
+    in epochs of global steps), data parallel over the process group when
+    there is one (``parallel/mesh.py``), one step at a time.
+
+    The feed: `batches`, a sized iterable of collated host batches (one
+    epoch of global batches; each rank trains on its rows), when given;
+    else a `TrainLoader` over `roidb` (None: `load_train_roidb(cfg)`) at
+    TRAIN.BATCH_IMAGES images per rank, seeded with `seed`, that loads
+    each rank's slice of the global batch with open_video and read_image
+    (see ``data.loader.load_pair_sample``).
 
     The model is `model` when given, else `init_model(cfg, seed, device)`,
-    which builds on the card when `device` is None.
-    The step's uniform draws come from a generator on the device seeded
-    with `seed`; its state, the step count, optimizer and scheduler are
-    checkpointed to <ckpt_dir>/<epoch>.pt after each epoch and at
-    max_steps, and restored when cfg.TRAIN.RESUME is set.
-    metrics_hook(step, metrics): called every step with the metric dict of
-    device scalars (reading one synchronizes with the device)."""
+    which builds on the card when `device` is None; rank 0's parameters
+    are broadcast to every rank. The step's uniform draws come from a
+    generator on the device seeded with `seed`; its state, the step count,
+    optimizer and scheduler are checkpointed to <ckpt_dir>/<epoch>.pt
+    after each epoch and at max_steps (by rank 0, between barriers), and
+    restored when cfg.TRAIN.RESUME is set. Rank 0 logs the `Speedometer`
+    line every cfg.default.frequent steps and the feed summary (the
+    loader's wait against the wall). metrics_hook(step, metrics): called
+    every step with the metric dict of device scalars (reading one
+    synchronizes with the device)."""
     logger = logger or logging.getLogger("lsfa_tpu_torch.train")
+    rank, world = mesh.rank(), mesh.world_size()
     if model is None:
         model = init_model(cfg, seed, device, logger)
+    mesh.broadcast_parameters(model)
     device = next(model.parameters()).device
-    steps_per_epoch = len(batches)
-    lr_steps = [int(float(e) * steps_per_epoch) for e in str(cfg.TRAIN.lr_step).split(",")]
     t = cfg.TRAIN
+    if batches is None:
+        batches = TrainLoader(roidb if roidb is not None else load_train_roidb(cfg), cfg,
+                              t.BATCH_IMAGES * world, seed=seed, open_video=open_video,
+                              read_image=read_image, rank=rank, world_size=world)
+        own_rows = None                      # the loader loads this rank's rows only
+    else:
+        own_rows = rank, world
+    steps_per_epoch = len(batches)
+    lr_steps = [int(float(e) * steps_per_epoch) for e in str(t.lr_step).split(",")]
     optimizer, scheduler = make_optimizer(
         model, base_lr=t.lr, lr_steps=lr_steps, lr_factor=t.lr_factor,
         momentum=t.momentum, wd=t.wd, warmup=t.warmup, warmup_lr=t.warmup_lr,
@@ -161,6 +205,8 @@ def train_net(cfg, batches, ckpt_dir: str | None = None, logger=None,
     settings = TrainSettings.from_config(cfg)
     make_step = make_rfcn_train_step if is_rfcn(cfg) else make_train_step
     train_step = make_step(model, settings, optimizer, scheduler)
+    speedo = (Speedometer(t.BATCH_IMAGES * world, cfg.default.frequent, logger)
+              if rank == 0 else None)
 
     steps_run, data_wait = 0, 0.0
     t_start = time.perf_counter()
@@ -172,20 +218,31 @@ def train_net(cfg, batches, ckpt_dir: str | None = None, logger=None,
             data_wait += time.perf_counter() - t0
             if host_batch is None:
                 break
+            if own_rows is not None:
+                host_batch = mesh.shard_batch(host_batch, *own_rows)
             batch = batch_to_device(host_batch, device)
-            metrics = train_step(batch, draw_uniforms(settings, batch, gen))
+            metrics = train_step(batch, draw_uniforms(settings, batch, gen, rank, world))
+            if speedo is not None:
+                speedo(step_count, metrics)
             if metrics_hook is not None:
                 metrics_hook(step_count, metrics)
             step_count += 1
             steps_run += 1
+        if hasattr(it, "close"):
+            it.close()                       # ends the loader's threads
         if ckpt_dir:
-            save_checkpoint(ckpt_dir, epoch + 1, model, optimizer, scheduler,
-                            step=step_count, rng_state=gen.get_state())
+            mesh.barrier()
+            if rank == 0:
+                save_checkpoint(ckpt_dir, epoch + 1, model, optimizer, scheduler,
+                                step=step_count, rng_state=gen.get_state())
+                logger.info(f"checkpointed epoch {epoch + 1}")
+            mesh.barrier()
         if max_steps is not None and steps_run >= max_steps:
             logger.info("max_steps reached, stopping early")
             break
     wall = time.perf_counter() - t_start
-    if steps_run:
-        logger.info(f"feed summary: {steps_run} steps in {wall:.1f}s, "
-                    f"loader-wait {data_wait:.1f}s ({100 * data_wait / wall:.1f}% of wall)")
+    if steps_run and rank == 0:
+        logger.info(f"feed summary: {steps_run} steps in {wall:.1f}s "
+                    f"({steps_run / wall:.2f} steps/s), loader-wait {data_wait:.1f}s "
+                    f"({100 * data_wait / wall:.1f}% of wall)")
     return model

@@ -10,9 +10,9 @@ import torch
 from lsfa_tpu_torch.train.losses import rpn_pair, smooth_l1
 
 
-def _labeled_mean(hit, labels):
+def _labeled_mean(hit, labels, count=None):
     mask = labels >= 0
-    return (hit & mask).sum() / mask.sum().clamp(min=1)
+    return (hit & mask).sum() / (mask.sum() if count is None else count).clamp(min=1)
 
 
 def _labeled_nll(logits, labels):
@@ -23,9 +23,11 @@ def _labeled_nll(logits, labels):
     return torch.where(mask, nll, torch.zeros_like(nll)).sum() / mask.sum().clamp(min=1)
 
 
-def rpn_acc(rpn_cls_logits, labels, num_anchors: int):
+def rpn_acc(rpn_cls_logits, labels, num_anchors: int, count=None):
+    """Accuracy over the labeled anchors (`count` of them when given, e.g.
+    over the global batch)."""
     pred = rpn_pair(rpn_cls_logits, num_anchors).argmax(dim=-1)
-    return _labeled_mean(pred == labels, labels)
+    return _labeled_mean(pred == labels, labels, count)
 
 
 def rpn_log_loss(rpn_cls_logits, labels, num_anchors: int):
@@ -36,8 +38,8 @@ def rpn_l1_loss(deltas, targets, weights, rpn_batch: int = 256):
     return (weights * smooth_l1(deltas - targets, 1.0)).sum() / rpn_batch
 
 
-def rcnn_acc(cls_logits, labels):
-    return _labeled_mean(cls_logits.argmax(dim=-1) == labels, labels)
+def rcnn_acc(cls_logits, labels, count=None):
+    return _labeled_mean(cls_logits.argmax(dim=-1) == labels, labels, count)
 
 
 def rcnn_log_loss(cls_logits, labels):

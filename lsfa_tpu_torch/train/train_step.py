@@ -12,6 +12,14 @@ Everything stays on the device: the step reaches no ``.item()``,
 The JAX step splits one PRNG key per step; here the uniform draws of the
 subsampling are tensors (`draw_uniforms` makes them from a
 ``torch.Generator``), so a test can pass in the draws JAX makes.
+
+Under a process group of several ranks (``parallel/mesh.py``) the step
+keeps the JAX step's global-batch semantics: each rank draws the global
+batch's uniforms and keeps its rows, normalizes its losses by the counts
+over the global batch (images, labeled anchors, labeled rois), sums the
+gradients over the ranks before the update and reports metrics over the
+global batch, so every rank applies the update of one step on the whole
+global batch.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from lsfa_tpu_torch.models.layers import full_float32
 from lsfa_tpu_torch.ops.anchors import anchor_grid
 from lsfa_tpu_torch.ops.proposal import rpn_proposals
 from lsfa_tpu_torch.ops.psroi_pool import psroi_pool
+from lsfa_tpu_torch.parallel import mesh
 from lsfa_tpu_torch.train.anchor_assign import assign_anchors
 from lsfa_tpu_torch.train.losses import rcnn_losses, rpn_losses, rpn_pair
 from lsfa_tpu_torch.train.metrics import rcnn_acc, rpn_acc
@@ -136,18 +145,22 @@ class DeviceConstants:
         return self._anchors[fh, fw]
 
 
-def draw_uniforms(s: TrainSettings, batch, generator: torch.Generator) -> dict:
+def draw_uniforms(s: TrainSettings, batch, generator: torch.Generator, rank: int = 0,
+                  world: int = 1) -> dict:
     """The step's uniform draws on the generator's device: rpn_fg, rpn_bg
     (B, H*W*A) for anchor subsampling over the feature map of data's
     bucket (H, W = its size // feat_stride) and, when batch_rois > 0,
     roi_fg, roi_bg, roi_gap (B, post_nms_top_n + max_gt) for roi
-    sampling."""
+    sampling. With `world` ranks, B is a rank's batch: the draws are made
+    for the global batch of B * world images and rank `rank` keeps its
+    rows, so equal generators give each image the draws of the
+    single-process step."""
     b, h, w = batch["data"].shape[:3]
     fh, fw = h // s.feat_stride, w // s.feat_stride
     dev = generator.device
 
     def u(n):
-        return torch.rand((b, n), generator=generator, device=dev)
+        return torch.rand((b * world, n), generator=generator, device=dev)[rank * b:(rank + 1) * b]
 
     out = {"rpn_fg": u(fh * fw * s.num_anchors), "rpn_bg": u(fh * fw * s.num_anchors)}
     if s.batch_rois > 0:
@@ -156,8 +169,12 @@ def draw_uniforms(s: TrainSettings, batch, generator: torch.Generator) -> dict:
     return out
 
 
-def detection_losses(out, batch, consts: DeviceConstants, draws: dict, s: TrainSettings):
-    """Head maps + gt -> (total loss, metric dict), batched over images."""
+def detection_losses(out, batch, consts: DeviceConstants, draws: dict, s: TrainSettings,
+                     world: int = 1):
+    """Head maps + gt -> (total loss, metric dict), batched over images.
+    Over `world` ranks the normalizers count the global batch (the label
+    counts summed over the ranks), so each loss and metric is the rank's
+    share of the global one."""
     b, fh, fw, _ = out["rpn_cls"].shape
     a = s.num_anchors
     anchors = consts.anchors(fh, fw)
@@ -171,11 +188,13 @@ def detection_losses(out, batch, consts: DeviceConstants, draws: dict, s: TrainS
         normalize=s.normalize_rpn, means=consts.anchor_means, stds=consts.anchor_stds,
         rpn_bbox_weights=consts.rpn_bbox_weights)
     rpn_labels = assign["label"].reshape(b, fh, fw, a)
+    n_rpn = mesh.sum_over_ranks((rpn_labels.long() != -1).sum())
     rpn_cls_loss, rpn_bbox_loss = rpn_losses(
         out["rpn_cls"], out["rpn_bbox"], rpn_labels,
         assign["bbox_target"].reshape(b, fh, fw, a * 4),
         assign["bbox_weight"].reshape(b, fh, fw, a * 4),
-        num_anchors=a, rpn_batch=s.rpn_batch, normalized=s.normalize_rpn)
+        num_anchors=a, rpn_batch=s.rpn_batch, normalized=s.normalize_rpn,
+        num_images=b * world, valid_count=n_rpn)
 
     # proposals and roi targets, without gradient
     with torch.no_grad():
@@ -214,31 +233,39 @@ def detection_losses(out, batch, consts: DeviceConstants, draws: dict, s: TrainS
         lab = torch.where(tgt["valid"], tgt["label"], -1.0)
         w = tgt["bbox_weight"]
         norm = max(s.batch_rois, 1)
+    n_rcnn = mesh.sum_over_ranks((lab.long() != -1).sum())
     rcnn_cls_loss, rcnn_bbox_loss = rcnn_losses(cls_scores, bbox_preds, lab,
-                                                tgt["bbox_target"], w, ohem_count=norm)
+                                                tgt["bbox_target"], w, ohem_count=norm,
+                                                num_images=b * world, valid_count=n_rcnn)
 
     losses = {"rpn_cls_loss": rpn_cls_loss, "rpn_bbox_loss": rpn_bbox_loss,
               "rcnn_cls_loss": rcnn_cls_loss, "rcnn_bbox_loss": rcnn_bbox_loss}
-    metrics = {"rpn_acc": rpn_acc(out["rpn_cls"].detach(), rpn_labels, a),
-               "rcnn_acc": rcnn_acc(cls_scores.detach(), lab),
+    metrics = {"rpn_acc": rpn_acc(out["rpn_cls"].detach(), rpn_labels, a, n_rpn),
+               "rcnn_acc": rcnn_acc(cls_scores.detach(), lab, n_rcnn),
                **{k: v.detach() for k, v in losses.items()}}
     return sum(losses.values()), metrics
 
 
 def _make_step(model, settings: TrainSettings, optimizer, scheduler, forward):
-    """step(batch, draws) around forward(batch) -> the head maps."""
+    """step(batch, draws) around forward(batch) -> the head maps, over the
+    ranks of the process group when there is one."""
     consts = DeviceConstants(settings, next(model.parameters()).device)
+    world = mesh.world_size()
 
     def train_step(batch, draws):
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        total, metrics = detection_losses(forward(batch), batch, consts, draws, settings)
+        total, metrics = detection_losses(forward(batch), batch, consts, draws, settings, world)
         with full_float32():     # the float32 convs' backward reads the flag when it runs
             total.backward()
+        mesh.all_reduce_gradients(model)
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
         metrics["total_loss"] = total.detach()
+        if mesh.active():        # the ranks' shares -> the global batch's metrics
+            summed = mesh.sum_over_ranks(torch.stack(list(metrics.values())))
+            metrics = dict(zip(metrics, summed.unbind()))
         return metrics
 
     return train_step

@@ -1,10 +1,40 @@
-"""Phase timing of the evaluation loops; the counterpart of
-``lsfa_tpu.utils.profiler.PhaseTimer``."""
+"""Throughput and phase timing; the counterparts of
+``lsfa_tpu.utils.profiler``'s `Speedometer` (the train loop's log line,
+dff_rfcn/core/callback.py:19-51) and `PhaseTimer` (the evaluation loops'
+data/net/post breakdown)."""
 
 from __future__ import annotations
 
 import contextlib
 import time
+
+
+class Speedometer:
+    """Logs samples/s over the last `frequent` steps, with the step's
+    metrics, every `frequent` calls after the first (which starts the
+    clock). The metrics may be device tensors: they are read, a host
+    sync, only on the steps that log."""
+
+    def __init__(self, batch_size: int, frequent: int = 20, logger=None):
+        self.batch_size = batch_size
+        self.frequent = frequent
+        self.logger = logger
+        self._t0 = None
+        self._count = 0
+
+    def __call__(self, step: int, metrics: dict | None = None):
+        self._count += 1
+        if self._t0 is None:
+            self._t0 = time.perf_counter()
+            self._count = 0
+            return
+        if self._count % self.frequent == 0:
+            speed = self.frequent * self.batch_size / (time.perf_counter() - self._t0)
+            msg = f"step [{step}]\tspeed: {speed:.2f} samples/sec"
+            if metrics:
+                msg += "\t" + "\t".join(f"{k}={float(v):.5f}" for k, v in metrics.items())
+            (self.logger.info if self.logger else print)(msg)
+            self._t0 = time.perf_counter()
 
 
 class PhaseTimer:

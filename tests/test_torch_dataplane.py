@@ -11,8 +11,9 @@ not load (it needs FFmpeg's libraries).
 
 The port's own parts are checked here too: SyntheticPreparedVideo (the
 seeded stand-in for a decoded video, same shapes and dtypes as a real
-one), the error without the library, EvalLoader's refusal where JAX takes
-the PIL host chain, DevicePrefetcher and PhaseTimer.
+one), the error without the library, EvalLoader's host chain for frames
+past the stream's end (against JAX's) and its refusal of a record without
+a stream, DevicePrefetcher and PhaseTimer.
 """
 
 import os
@@ -271,22 +272,29 @@ def test_eval_loader_matches_jax(clip, full_frames):
     assert default.bucket_hw == BUCKET and default.key_interval == 12
 
 
-def test_eval_loader_refuses_the_host_chain(clip):
-    """Where JAX falls back to the PIL host chain (a frame past the
-    stream's end, a record without a stream) the port raises."""
+def test_eval_loader_refuses_the_host_chain(clip, tmp_path):
+    """Frames past the stream's end go through read_image (the JPEG
+    reader by default) and the host image chain, in the stream's wire
+    format, as JAX's do; a record without a stream still raises, where JAX
+    would read every frame's JPEG."""
+    from PIL import Image
+
     cfg, jcfg = configs()
-    long = [{"vid_path": "a", "video_path": clip, "frame_seg_len": N_FRAMES + 1,
-             "_tail_start": 28, "pattern": "/nonexistent/%06d.JPEG"}]
-    it = iter(loader.EvalLoader(long, cfg, bucket_hw=BUCKET))
-    assert [next(it)["frame_id"] for _ in range(2)] == [28, 29]
-    with pytest.raises(NotImplementedError, match="past the stream's end.*Queue 1 item 5"):
-        next(it)
-    jit = iter(jax_loader.EvalLoader(long, jcfg, bucket_hw=BUCKET))
-    assert [next(jit)["frame_id"] for _ in range(2)] == [28, 29]
-    with pytest.raises(FileNotFoundError):             # JAX opens the JPEG
-        next(jit)
+    pattern = str(tmp_path / "%06d.JPEG")
+    rng = np.random.default_rng(8)
+    for fid in (N_FRAMES, N_FRAMES + 1):
+        Image.fromarray(rng.integers(0, 256, (96, 128, 3), dtype=np.uint8)).save(pattern % fid)
+    long = [{"vid_path": "a", "video_path": clip, "frame_seg_len": N_FRAMES + 2,
+             "_tail_start": 28, "pattern": pattern}]
+    for full_frames, fmt in ((False, (1, 96, 112, 1)), (True, (1, 64, 112, 3))):
+        got = list(loader.EvalLoader(long, cfg, bucket_hw=BUCKET, full_frames=full_frames))
+        want = list(jax_loader.EvalLoader(long, jcfg, bucket_hw=BUCKET, full_frames=full_frames))
+        assert [i["frame_id"] for i in got] == [28, 29, 30, 31]
+        for g, w in zip(got, want):
+            items_equal(g, w)
+        assert got[-1]["data"].shape == fmt and not got[-1]["motion_vector"].any()
     bare = [{"vid_path": "b", "frame_seg_len": 3, "pattern": "/nonexistent/%06d.JPEG"}]
-    with pytest.raises(NotImplementedError, match="no compressed stream.*Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="no compressed stream"):
         next(iter(loader.EvalLoader(bare, cfg, bucket_hw=BUCKET)))
 
 

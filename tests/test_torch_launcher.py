@@ -99,7 +99,7 @@ def test_importer_writes_a_checkpoint_resume_reads(checkpoints):
         if not k.startswith("small_net_backbone.") or k.endswith(("_mean", "_var")):
             assert torch.equal(state["model"][k], v), k
     cfg = load_config(cfg_path, overrides={"TRAIN": {"RESUME": True}})
-    model = train_net(cfg, [], ckpt_dir=ckpt, device="cpu")
+    model = train_net(cfg, batches=[], ckpt_dir=ckpt, device="cpu")
     assert latest_epochs(ckpt) == [0, 1]
     resumed = model.state_dict()
     assert all(torch.equal(resumed[k], state["model"][k]) for k in resumed)

@@ -209,13 +209,13 @@ def test_rfcn_init_model_and_train_net_resume(tmp_path):
         return lambda step, m: log.append((step, float(m["total_loss"])))
 
     ckpt = str(tmp_path / "ckpt")
-    train_net(cfg, batches, ckpt_dir=ckpt, max_steps=1, model=copy.deepcopy(model),
+    train_net(cfg, batches=batches, ckpt_dir=ckpt, max_steps=1, model=copy.deepcopy(model),
               metrics_hook=hook(resumed_m), seed=9)
-    straight = train_net(cfg, batches, max_steps=2, model=model,
+    straight = train_net(cfg, batches=batches, max_steps=2, model=model,
                          metrics_hook=hook(straight_m), seed=9)
     assert sorted(os.listdir(ckpt)) == ["1.pt"]
     cfg.TRAIN.RESUME = True
-    resumed = train_net(cfg, batches, ckpt_dir=ckpt, max_steps=1,
+    resumed = train_net(cfg, batches=batches, ckpt_dir=ckpt, max_steps=1,
                         model=rfcn_from_config(cfg, device="cpu"),
                         metrics_hook=hook(resumed_m), seed=0)
     assert resumed_m == straight_m and all(np.isfinite(x) for _, x in straight_m)
@@ -229,7 +229,7 @@ def test_rfcn_constructors_default_to_the_card():
     card when no device is given; without a card they raise."""
     cfg = load_config(CONFIG)
     if not torch.cuda.is_available():
-        for build in (rfcn_from_config, init_model, lambda c: train_net(c, [])):
+        for build in (rfcn_from_config, init_model, lambda c: train_net(c, batches=[])):
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 build(cfg)
         return

@@ -226,13 +226,13 @@ def test_train_net_resume_equals_straight_run(tmp_path):
 
     model = init_model(cfg, 0, device="cpu")
     ckpt = str(tmp_path / "ckpt")
-    train_net(cfg, batches, ckpt_dir=ckpt, max_steps=2, model=copy.deepcopy(model),
+    train_net(cfg, batches=batches, ckpt_dir=ckpt, max_steps=2, model=copy.deepcopy(model),
               metrics_hook=hook(resumed_m), seed=9)
-    straight = train_net(cfg, batches, max_steps=3, model=model,
+    straight = train_net(cfg, batches=batches, max_steps=3, model=model,
                          metrics_hook=hook(straight_m), seed=9)
     assert sorted(os.listdir(ckpt)) == ["1.pt"]
     cfg.TRAIN.RESUME = True                    # into an uninitialized model
-    resumed = train_net(cfg, batches, ckpt_dir=ckpt, max_steps=1,
+    resumed = train_net(cfg, batches=batches, ckpt_dir=ckpt, max_steps=1,
                         model=lsfa_from_config(cfg, device="cpu"), metrics_hook=hook(resumed_m), seed=0)
     assert resumed_m == straight_m and [s for s, _ in straight_m] == [0, 1, 2]
     for (name, a), b in zip(straight.state_dict().items(), resumed.state_dict().values()):
