@@ -9,8 +9,8 @@ Phases, each printing one line before the last:
   3. kernel vs plain: the kernel's alive masks and converged flags equal
      the plain version's bit for bit on the four streaming shapes (1, 2048)
      t=0.7, (30, 300) t=0.3, (11, 2048) t=0.7, (330, 300) t=0.3, the RPN
-     stand-in (12, 2048), suppression chains at B = 1, the odd cap 1, a
-     cut valid mask, ragged N, N = 1, the two-phase N = 2049 and 8192,
+     stand-in (12, 2048), the batched GOP's per-class (360, 300),
+     suppression chains at B = 1, the odd cap 1, a cut valid mask, ragged N, N = 1, the two-phase N = 2049 and 8192,
      and knife-edge pairs whose float32 IoU lies within 2 ulps of t;
      checks that N <= 2048 allocates no scratch (torch.cuda memory
      statistics) and that a call is one kernel for N <= 2048 and two
@@ -127,7 +127,37 @@ Phases, each printing one line before the last:
      parameters unchanged, run_test's mAP in [0, 1] with 24 launches
      reckoned from its schedule; prints ms per step, peak memory, the feed
      summary (loader-wait share) and run_test's frames/s;
- 23. profiled: the R-FCN frame and train step, host enqueue against wall
+ 23. MobileNetV2 LSFA: the trunk, pixel statistics and depth that
+     update_network_config derives from "mobilenetv2" (ReLU6, the 1280-ch
+     head, feat 1024, FlowNet-S, Nq-net, R-net, no small net, no DCN, 31
+     classes, bf16, RPN tier 2048) at full width, seeded weights, through
+     eval_videos over phase 13's three records (after a first pass that
+     is not timed): the checks of phase 13 (102 finite records, the
+     schedule, 44 launches, no host sync inside an enqueue), frames/s and
+     the PhaseTimer split; the kernel's mask equal to the plain version's
+     on this model's RPN inputs at (1, 2048) and (11, 2048); 2 steps of
+     train_net (the checks and prints of phase 6);
+ 24. Hobot LSFA: the same with the Hobot trunk (plain ReLU, 320 channels,
+     PIXEL_SCALE 0.017), one GOP through StreamingDetector after a
+     warm-up GOP: finite detections and carry, 4 kernel launches, ms/GOP;
+ 25. batched GOP: the flagship of phase 4 through the port's
+     experiments.demo_batch.main over a 12-frame SyntheticVideoReader GOP
+     of 960x576 frames at 608x1024: 12 frames of finite detections, 2
+     kernel launches at (12, 2048) t=0.7 and (360, 300) t=0.3, masks equal
+     to the plain version's on those inputs, ms per GOP (median of 5);
+     frame 0's feature and maps within 2^-7 of each one's largest value of
+     forward_key's with is_first=1 on the same frame (the same fresh bf16
+     feature, its heads run at batch 12 and 1); then the kernel's and the
+     plain version's time and the bound at (360, 300) on that input, and
+     the script's seconds so far;
+ 26. every variant tiny: fgfa, fnet_conv2, fnet_res, fuse_concat,
+     small_addv2, small_concat, small_concatv1, small_concatv2, mobilenet
+     and mobilenet_hobot (ResNet-18 with DCN or the MobileNet trunk, feat
+     64, float32), the same seeded weights on the card and on the CPU
+     through forward_key, forward_cur and forward_batch_gop, and the
+     ResNet-18 trunk with the non-local block: each output within 1e-4 of
+     max(1, its largest |value|), under the package's float32 pin;
+ 27. profiled: the R-FCN frame and train step, host enqueue against wall
      time, then their device time, kernels per call and top kernels under
      torch.profiler; torch.profiler's count of kernels in each phase 3
      case's call equals the captured graph's, and it gives the kernel's
@@ -152,6 +182,7 @@ from pathlib import Path
 import numpy as np
 
 REPO = Path(__file__).resolve().parent
+T0 = time.perf_counter()                # the script's start
 GOP = 12
 BUCKET = (608, 1024)
 CONTENT = (600, 1000)                 # resized frame inside the bucket
@@ -277,6 +308,8 @@ def kernel_cases(rng):
          31, True),
         ("stream RPN non-key (11, 2048)", stack(11, 2048), rng.uniform(size=(11, 2048)) < 0.95,
          0.7, 31, True),
+        ("batched-GOP per-class (360, 300)", stack(360, 300),
+         rng.uniform(size=(360, 300)) < 0.8, 0.3, 31, True),
         ("chain B=1 n=2048 cap 31", chain_boxes(2048), np.ones((1, 2048), bool), 0.5, 31, False),
         ("N=1", stack(3, 1), np.ones((3, 1), bool), 0.7, 31, False),
         ("N=2049 two-phase", stack(2, 2049), np.ones((2, 2049), bool), 0.7, 31, False),
@@ -985,7 +1018,7 @@ def same_detections(name, got, want):
     return worst
 
 
-def lsfa_loop(name, loop, model, cfg, nms_cuda, **kw):
+def lsfa_loop(name, loop, model, cfg, nms_cuda, desc="LSFA ResNet-101 bf16", **kw):
     """One LSFA evaluation loop over the three synthetic records, its
     schedule recorded. Checks 102 finite records, the schedule (8 GOPs in
     windows of at most 2, then the 30-frame video's last 6 frames one by
@@ -1026,7 +1059,7 @@ def lsfa_loop(name, loop, model, cfg, nms_cuda, **kw):
     # cuDNN), then four steady non-key frames up to the loop's end
     stamps = [c["t0"] for c in frames] + [t0 + seconds]
     frame_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
-    print(f"{name}: LSFA ResNet-101 bf16 at {BUCKET[0]}x{BUCKET[1]}, 3 synthetic videos of 36, 36 "
+    print(f"{name}: {desc} at {BUCKET[0]}x{BUCKET[1]}, 3 synthetic videos of 36, 36 "
           f"and 30 frames: {n_frames} records in {seconds:.3f} s = {n_frames / seconds:.1f} "
           f"frames/s; {sum(c['gops'] for c in windows)} GOPs in {len(windows)} windows at "
           f"{gop_ms:.1f} ms/GOP = {gop_ms / GOP:.2f} ms/frame (enqueue per window ms "
@@ -1126,6 +1159,280 @@ def eval_phases(dev, model, cfg, nms_cuda):
               f"PreparedVideo('missing.mp4') raised {type(e).__name__}: {e}")
     return seq, {"eval_videos": seq_launches, "eval_timeplex": tp_launches,
                  "eval_rfcn": rfcn_launches}
+
+
+def cur_rpn_masks(det, payload, nms_cuda, greedy_alive):
+    """`rpn_masks` on the non-key frames of GOP `payload` (n, 2048), from
+    the key feature `det` holds: the GOP's own once `det` has run it."""
+    import torch
+
+    dev = det.device
+    _, smalls, mv, res, info = payload
+    n = smalls.shape[0] - 1
+    with torch.no_grad():
+        out = det.model.forward_cur(torch.from_numpy(smalls[1:]).to(dev),
+                                    det.feat_key.expand(n, -1, -1, -1),
+                                    torch.from_numpy(mv[1:]).float().to(dev),
+                                    torch.from_numpy(res[1:]).float().to(dev))
+    return rpn_masks(out, det.anchors, torch.from_numpy(info[None]).to(dev).expand(n, 3),
+                     det.cfg, nms_cuda, greedy_alive)
+
+
+def mobile_config(pretrained):
+    """The default config with the trunk, depth and pixel statistics that
+    update_network_config derives from `pretrained`, no small net (the
+    MobileNet trunks have none) and no DCN (ResNet units only): DFF_FEAT_DIM
+    1024, FlowNet-S, Nq-net, R-net, 31 classes, bf16, the 608x1024 bucket,
+    RPN tier 2048."""
+    from lsfa_tpu_torch.config import get_default_config, update_network_config
+
+    cfg = get_default_config()
+    cfg.network.pretrained = pretrained
+    update_network_config(cfg)
+    cfg.network.add_small_net = False
+    cfg.network.add_dcn = False
+    return cfg
+
+
+def mobilenet_phase(dev, nms_cuda, greedy_alive):
+    """Phase 23: MobileNetV2 LSFA at full width through eval_videos (the
+    checks of phase 13), the kernel's mask on this model's RPN inputs at
+    (1, 2048) and (11, 2048), and 2 steps of train_net (the checks of
+    phase 6). Returns (launches by path, max abs error of the masks)."""
+    import torch
+
+    from lsfa_tpu_torch.eval.driver import eval_videos
+    from lsfa_tpu_torch.eval.tester import StreamingDetector
+    from lsfa_tpu_torch.models.lsfa import init_params, lsfa_from_config
+
+    cfg = mobile_config("mobilenetv2")
+    n = cfg.network
+    check(n.nettype == "mobilenet" and list(n.PIXEL_MEANS) == [103.94, 116.78, 123.68]
+          and n.PIXEL_SCALE == 1.0, f"mobilenetv2 config: {n.nettype} {n.PIXEL_MEANS} "
+          f"{n.PIXEL_SCALE}")
+    model = lsfa_from_config(cfg, device=dev)
+    init_params(model, torch.Generator(device=dev).manual_seed(0))
+    check(type(model.backbone).__name__ == "MobileNetV2Backbone"
+          and model.feat_conv_3x3.weight.shape[1] == 1280, "not the MobileNetV2 trunk")
+    desc = "LSFA MobileNetV2 (1280-ch head, feat 1024) bf16"
+    # a first pass over the records, not timed: cuDNN picks this trunk's
+    # algorithms at each new shape (the flagship's loop of phase 13 runs
+    # after phases 4-12 have done so)
+    roidb, open_video = eval_records(EVAL_LENGTHS)
+    eval_videos(model, cfg, roidb, logger=Lines(), open_video=open_video)
+    _, eval_launches, _ = lsfa_loop("mobilenet eval_videos", eval_videos, model, cfg, nms_cuda,
+                                    desc=desc)
+
+    det = StreamingDetector(model, cfg, BUCKET)
+    payloads = synth_gops(cfg, 2, 7)
+    det.process_prepared_window(payloads[:1], first=True)
+    key = key_rpn_masks(det, det.get_state(), payloads[1], False, nms_cuda, greedy_alive)
+    det.process_prepared_window(payloads[1:])              # its key feature, for the non-key
+    cur = cur_rpn_masks(det, payloads[1], nms_cuda, greedy_alive)
+    err = 0.0
+    for name, (got, want, boxes, valid), shape in (("key", key, (1, 2048)),
+                                                   ("non-key", cur, (GOP - 1, 2048))):
+        check(tuple(boxes.shape[:2]) == shape, f"mobilenet {name} RPN input {tuple(boxes.shape)}")
+        check(torch.equal(got, want), f"mobilenet: kernel != plain on the {name} RPN input")
+        err = max(err, float((got.int() - want.int()).abs().max()))
+        print(f"mobilenet: kernel mask equals plain on the {name} frames' RPN input "
+              f"{tuple(boxes.shape)}: {int(got.sum())} alive of {int(valid.sum())} valid")
+
+    r = train_run(cfg, model, 2, nms_cuda, greedy_alive, still_ok=("nq_net.conv3.bias",))
+    print(train_line(f"mobilenet train path: {desc} (float32 parameters) at {BUCKET[0]}x"
+                     f"{BUCKET[1]}, B=1, 2 steps of train_net", r))
+    return {"mobilenet_eval": eval_launches, "mobilenet_train": r["launches"]}, max(err, r["err"])
+
+
+def hobot_phase(dev, nms_cuda):
+    """Phase 24: the Hobot MobileNetV2 LSFA at full width, one GOP through
+    StreamingDetector (after a warm-up GOP): finite detections, 4 kernel
+    launches. Returns the launches."""
+    import torch
+
+    from lsfa_tpu_torch.eval.tester import StreamingDetector
+    from lsfa_tpu_torch.models.lsfa import init_params, lsfa_from_config
+
+    cfg = mobile_config("mobilenetv2_hobot")
+    check(cfg.network.nettype == "mobilenet_hobot" and cfg.network.PIXEL_SCALE == 0.017,
+          f"hobot config: {cfg.network.nettype} {cfg.network.PIXEL_SCALE}")
+    model = lsfa_from_config(cfg, device=dev)
+    init_params(model, torch.Generator(device=dev).manual_seed(0))
+    check(type(model.backbone).__name__ == "MobileNetV2HobotBackbone"
+          and model.feat_conv_3x3.weight.shape[1] == 320, "not the Hobot trunk")
+    det = StreamingDetector(model, cfg, BUCKET)
+    payload = synth_gops(cfg, 1, 8)
+    det.process_prepared_window(payload, first=True)
+    torch.cuda.synchronize()
+    nms_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    kd, kv, cd, cv = det.process_prepared_window(payload, first=True)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = nms_cuda.LAUNCHES
+    check(launches == 4, f"hobot: {launches} kernel launches in one GOP, not 4")
+    check(tuple(kd.shape) == (1, 1, 300, 6) and tuple(cd.shape) == (1, GOP - 1, 300, 6),
+          f"hobot detection shapes {tuple(kd.shape)}, {tuple(cd.shape)}")
+    check(bool(torch.isfinite(kd).all() and torch.isfinite(cd).all()
+               and torch.isfinite(det.feat_key).all()), "hobot: non-finite detections or carry")
+    print(f"hobot: LSFA Hobot MobileNetV2 (320-ch trunk, PIXEL_SCALE 0.017, feat 1024) bf16 at "
+          f"{BUCKET[0]}x{BUCKET[1]}, one GOP through StreamingDetector after a warm-up GOP: "
+          f"{ms:.1f} ms/GOP = {GOP / ms * 1e3:.1f} frames/s; nms kernel launches {launches}; "
+          f"valid detections {int(kv.sum())} (key), {int(cv.sum()) // (GOP - 1)} (non-key mean)")
+    return launches
+
+
+def batch_gop_phase(dev, model, cfg, nms_cuda, greedy_alive):
+    """Phase 25: the flagship's batched-GOP graph through the port's
+    demo_batch.main over a 12-frame SyntheticVideoReader GOP of 960x576
+    frames: 12 frames of finite detections, 2 kernel launches at
+    (12, 2048) t=0.7 and (360, 300) t=0.3 with masks equal to the plain
+    version's on those inputs; ms per GOP; frame 0's maps against
+    forward_key with is_first=1 on the same frame. Returns (launches, max
+    abs error of the masks, the kernel's inputs at (360, 300))."""
+    import torch
+
+    from lsfa_tpu_torch.data.loader import SyntheticVideoReader
+    from lsfa_tpu_torch.experiments import demo_batch
+
+    reader = SyntheticVideoReader("synthetic-gop", 576, 960, num_frames=GOP)
+    batch, info = demo_batch.prepare_gop(demo_batch.gop_frames(reader, 0), cfg, BUCKET)
+    demo_batch.detect_gop(model, cfg, batch, info)           # warm-up: cuDNN picks
+    kernel, seen = nms_cuda.greedy_alive_cuda, []
+
+    def recorded(boxes, valid, thresh, sweeps):
+        alive, conv = kernel(boxes, valid, thresh, sweeps)
+        seen.append((boxes.clone(), valid.clone(), thresh, sweeps, alive.clone()))
+        return alive, conv
+
+    torch.cuda.synchronize()
+    nms_cuda.LAUNCHES = 0
+    nms_cuda.greedy_alive_cuda = recorded
+    try:
+        dets, valid = demo_batch.main(["--cfg", str(LSFA_CONFIG), "--video", "synthetic-gop"],
+                                      open_video=lambda path: reader, model=model)
+        torch.cuda.synchronize()
+    finally:
+        nms_cuda.greedy_alive_cuda = kernel
+    launches = nms_cuda.LAUNCHES
+    check(launches == 2, f"batched GOP: {launches} kernel launches, not 2")
+    shapes = [(tuple(b.shape[:2]), t) for b, _, t, _, _ in seen]
+    check(shapes == [((GOP, 2048), 0.7), ((GOP * 30, 300), 0.3)],
+          f"batched GOP: kernel calls at {shapes}")
+    err = 0.0
+    for boxes, ok, thresh, sweeps, alive in seen:
+        want = greedy_alive(boxes, ok, thresh, sweeps)
+        check(torch.equal(alive, want), f"batched GOP: kernel != plain at {tuple(boxes.shape)}")
+        err = max(err, float((alive.int() - want.int()).abs().max()))
+    check(tuple(dets.shape) == (GOP, 300, 6) and bool(torch.isfinite(dets).all()),
+          f"batched GOP detections {tuple(dets.shape)}")
+    check(bool(valid.any(dim=1).all()), "batched GOP: a frame without valid detections")
+    ms = cuda_ms(lambda: demo_batch.detect_gop(model, cfg, batch, info), reps=5)
+
+    x = torch.from_numpy(batch).to(dev)
+    fh, fw = BUCKET[0] // 16, BUCKET[1] // 16
+    with torch.no_grad():
+        gop_out = model.forward_batch_gop(x[:1], x[1:])
+        key_out = model.forward_key(x[:1], torch.zeros((1,) + BUCKET + (3,), device=dev),
+                                    torch.zeros((1, fh, fw, cfg.network.DFF_FEAT_DIM),
+                                                device=dev), torch.ones(1, device=dev))
+    errs = {}
+    for k in ("feat", "rpn_fg", "rpn_deltas", "rfcn_cls_map", "rfcn_bbox_map"):
+        a, b = gop_out[k][0].float(), key_out[k][0].float()
+        errs[k] = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+    worst = max(errs.values())
+    # both are the fresh bf16 key feature and its heads, at batch 12 and 1:
+    # held to 2^-7 of each map's largest value (bf16 keeps 8 bits)
+    check(worst <= 2 ** -7, f"batched GOP frame 0 vs forward_key: {errs}")
+    print(f"batched GOP: LSFA ResNet-101 bf16 at {BUCKET[0]}x{BUCKET[1]}, demo_batch.main over a "
+          f"12-frame SyntheticVideoReader GOP of 960x576: {GOP} frames of detections, valid "
+          f"{valid.sum(dim=1).tolist()}; nms kernel launches {launches} at {shapes}, masks equal "
+          f"plain; {ms:.1f} ms/GOP (forward_batch_gop and detection, median of 5) = "
+          f"{GOP / ms * 1e3:.1f} frames/s; frame 0 against forward_key(is_first=1): max err of "
+          f"the map's largest |value| {({k: f'{e:.1e}' for k, e in errs.items()})}")
+    return launches, err, seen[1]
+
+
+PHASE26_VARIANTS = {
+    "fgfa": {"add_Nq_net": False, "add_Fgfa_net": True},
+    "fnet_conv2": {"fnet_type": "conv#2"},
+    "fnet_res": {"fnet_type": "res"},
+    "fuse_concat": {"fuse_type": "concat"},
+    "small_addv2": {"small_net_fuse_type": "addv2"},
+    "small_concat": {"small_net_fuse_type": "concat"},
+    "small_concatv1": {"small_net_fuse_type": "concatv1"},
+    "small_concatv2": {"small_net_fuse_type": "concatv2"},
+    "mobilenet": {"nettype": "mobilenet", "add_small_net": False,
+                  "PIXEL_MEANS": [103.94, 116.78, 123.68]},
+    "mobilenet_hobot": {"nettype": "mobilenet_hobot", "add_small_net": False,
+                        "PIXEL_MEANS": [103.94, 116.78, 123.68], "PIXEL_SCALE": 0.017},
+}
+
+
+def variants_card_vs_cpu(dev):
+    """Phase 26: every variant of the model family at tiny depth (ResNet-18
+    with DCN or a MobileNet trunk, feat 64, float32), the same seeded
+    weights on the card and on the CPU, through forward_key, forward_cur
+    and forward_batch_gop on the same seeded inputs; and the non-local
+    block inside the ResNet-18 trunk. Each output within 1e-4 of max(1,
+    its largest |value| on the CPU), under the package's float32 pin."""
+    import torch
+
+    from lsfa_tpu_torch.config import load_config
+    from lsfa_tpu_torch.models.lsfa import init_params, lsfa_from_config
+    from lsfa_tpu_torch.models.resnet import ResNetBackbone
+
+    h, w = 64, 112
+    fh, fw = h // 16, w // 16
+    rng = np.random.default_rng(26)
+    data = rng.integers(0, 256, (1, h, w, 3), dtype=np.uint8)
+    prev = rng.normal(0, 60, (1, h, w, 3)).astype(np.float32)
+    feat = rng.normal(0, 1, (1, fh, fw, 64)).astype(np.float32)
+    small = rng.integers(0, 256, (2, h // 4, w // 4, 3), dtype=np.uint8)
+    mv = rng.normal(0, 1.5, (2, fh, fw, 2)).astype(np.float32)
+    res = rng.normal(0, 20, (2, fh, fw, 3)).astype(np.float32)
+    others = rng.integers(0, 256, (2, h, w, 3), dtype=np.uint8)
+
+    def graphs(m, d):
+        def t(x):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(d)
+
+        with torch.no_grad():
+            return {"forward_key": m.forward_key(t(data), t(prev), t(feat),
+                                                 torch.zeros(1, device=d)),
+                    "forward_cur": m.forward_cur(t(small), t(np.repeat(feat, 2, 0)), t(mv),
+                                                 t(res)),
+                    "forward_batch_gop": m.forward_batch_gop(t(data), t(others))}
+
+    def rel_err(got, want):
+        return float((got.cpu().float() - want.float()).abs().max()) / max(
+            1.0, float(want.float().abs().max()))
+
+    worst = {}
+    for name, network in PHASE26_VARIANTS.items():
+        tiny = load_config(None, overrides={
+            "network": {"num_layer": 18, "DFF_FEAT_DIM": 64, "ANCHOR_SCALES": [1, 2, 4],
+                        **network},
+            "tpu": {"compute_dtype": "float32"}})
+        cpu_model = lsfa_from_config(tiny, device="cpu").eval()
+        init_params(cpu_model, torch.Generator().manual_seed(3))
+        gpu_model = lsfa_from_config(tiny, device=dev).eval()
+        gpu_model.load_state_dict(cpu_model.state_dict())
+        ref, card = graphs(cpu_model, "cpu"), graphs(gpu_model, dev)
+        worst[name] = max(rel_err(card[g][k], ref[g][k]) for g in ref for k in ref[g])
+        check(worst[name] < 1e-4, f"variant {name}: card vs CPU differ by {worst[name]:.2e}")
+    cpu_trunk = ResNetBackbone(18, non_local=True).eval()
+    init_params(cpu_trunk, torch.Generator().manual_seed(5))
+    gpu_trunk = ResNetBackbone(18, non_local=True, device=dev).eval()
+    gpu_trunk.load_state_dict(cpu_trunk.state_dict())
+    x = torch.from_numpy(prev).permute(0, 3, 1, 2).contiguous()
+    with torch.no_grad():
+        ref, card = cpu_trunk(x), gpu_trunk(x.to(dev))
+    worst["non_local"] = max(rel_err(c, r) for c, r in zip(card, ref))
+    check(worst["non_local"] < 1e-4, f"non_local trunk: card vs CPU differ by {worst['non_local']}")
+    print(f"variants: tiny float32 LSFA variants card vs CPU through forward_key, forward_cur and "
+          f"forward_batch_gop, and the ResNet-18 trunk with the non-local block: max err of "
+          f"max(1, |value|) {({k: f'{e:.1e}' for k, e in worst.items()})}")
 
 
 def float32_pin(dev, det, payloads):
@@ -2082,11 +2389,30 @@ def main():
         # 22: the train+test launcher over a DET+VID tree, under NCCL
         tt_launches, tt_err = train_test_phase(dev, nms_cuda, greedy_alive, scratch)
     max_err = max(max_err, rt_err, warm_err, tt_err)
+
+    # 23-26: the rest of the model family: the MobileNetV2 and Hobot trunks
+    # at full width, the flagship's batched-GOP graph, every variant tiny
+    mobile_launches, mobile_err = mobilenet_phase(dev, nms_cuda, greedy_alive)
+    hobot_launches = hobot_phase(dev, nms_cuda)
+    gop_launches, gop_err, gop_classes = batch_gop_phase(dev, model, cfg, nms_cuda, greedy_alive)
+    variants_card_vs_cpu(dev)
+    max_err = max(max_err, mobile_err, gop_err)
     check(torch.backends.cudnn.allow_tf32 is True,
           "torch.backends.cudnn.allow_tf32 was left changed by the package")
 
-    # 23. launches and device time by torch.profiler, last: after a profiled
-    # window the host's launches stay slower, which would bias phases 3-22
+    # the kernel at the batched GOP's per-class shape, on that run's input
+    boxes, valid, thresh, sweeps, _ = gop_classes
+    k_ms = cuda_ms(lambda: nms_cuda.greedy_alive_cuda(boxes, valid, thresh, sweeps))
+    p_ms = cuda_ms(lambda: greedy_alive(boxes, valid, thresh, sweeps))
+    bound_ms, bound_by = nms_bound_ms(*valid.shape)
+    print(f"batched GOP: the kernel on that run's per-class input {tuple(boxes.shape)} t={thresh}: "
+          f"{k_ms * 1e3:.1f} us per call (median of 20, wrapper included), plain "
+          f"{p_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us ({bound_by}), share "
+          f"{bound_ms / k_ms:.3f}")
+    print(f"phases 1-26: {time.perf_counter() - T0:.1f} s since the script started")
+
+    # 27. launches and device time by torch.profiler, last: after a profiled
+    # window the host's launches stay slower, which would bias phases 3-26
     rfcn_account(dev)
     timed = iter(shapes)
     for name, b, v, thresh, sweeps, is_timed, kernels in checked:
@@ -2120,7 +2446,8 @@ def main():
         "launches": (launches + train_launches + serve_launches + rfcn_launches + bn_launches
                      + sum(eval_launches.values()) + sum(rt_launches.values())
                      + sum(launcher_launches.values()) + warm_launches
-                     + sum(tt_launches.values())),
+                     + sum(tt_launches.values()) + sum(mobile_launches.values())
+                     + hobot_launches + gop_launches),
         "max_abs_err": max_err,
         "ms": rpn["us"] / 1e3, "plain_ms": rpn["plain_us"] / 1e3,
         "bound_ms": rpn["bound_us"] / 1e3, "bound_by": rpn["bound_by"], "library_ms": None,
@@ -2128,7 +2455,8 @@ def main():
                              "rfcn_serve": serve_launches, "rfcn_train": rfcn_launches,
                              "train_bn": bn_launches, **eval_launches, **rt_launches,
                              **launcher_launches, "warm_train": warm_launches,
-                             **tt_launches},
+                             **tt_launches, **mobile_launches, "hobot_stream": hobot_launches,
+                             "batch_gop": gop_launches},
         "shapes": shapes}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

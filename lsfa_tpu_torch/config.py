@@ -18,6 +18,7 @@ from __future__ import annotations
 import copy
 import json
 
+import numpy as np
 import torch
 
 
@@ -231,6 +232,30 @@ def load_config(path: str | None = None, overrides: dict | None = None) -> AttrD
         _merge(c, overrides)
     _finalize(c)
     return c
+
+
+def update_network_config(c: AttrDict) -> None:
+    """Derive the pixel statistics, nettype and depth from the pretrained
+    model's name (reference: dff_rfcn/config/config.py:170-186): a
+    ``resnet`` name takes zero means, scale 1 and its depth from the
+    suffix; a ``mobilenetv2`` name the ImageNet BGR means, scale 0.017 for
+    the Hobot trunk (1.0 otherwise) and that trunk."""
+    name = c.network.pretrained
+    if "resnet" in name:
+        c.network.PIXEL_MEANS = [0.0, 0.0, 0.0]
+        c.network.PIXEL_SCALE = 1.0
+        c.network.nettype = "resnet"
+        c.network.num_layer = int(float(name.split("-")[-1]))
+    elif "mobilenetv2" in name:
+        c.network.PIXEL_MEANS = [103.94, 116.78, 123.68]
+        c.network.PIXEL_SCALE = 0.017 if "hobot" in name else 1.0
+        c.network.nettype = "mobilenet_hobot" if "hobot" in name else "mobilenet"
+    else:
+        raise ValueError(f"cannot derive nettype from pretrained name: {name!r}")
+
+
+def np_pixel_means(c: AttrDict) -> np.ndarray:
+    return np.asarray(c.network.PIXEL_MEANS, dtype=np.float32)
 
 
 def compute_dtype(cfg: AttrDict) -> torch.dtype:

@@ -93,6 +93,18 @@ def detect_batch(out, anchors, im_info, num_classes: int, pre_nms: int = 6000,
         score_thresh=score_thresh, bbox_stds=bbox_stds, num_reg_classes=num_reg_classes)
 
 
+def detect_single(rpn_fg, rpn_deltas, cls_map, bbox_map, anchors, im_info, **kw):
+    """One frame's unbatched maps (fh, fw, A), (fh, fw, 4A) and the R-FCN
+    maps (fh, fw, .) -> its detections (M, 6) and validity (M,):
+    `detect_batch` at B = 1, with its keyword arguments. The JAX
+    package's `nms_pallas` has no counterpart: on a card the NMS kernel
+    always runs."""
+    out = {"rpn_fg": rpn_fg[None], "rpn_deltas": rpn_deltas[None],
+           "rfcn_cls_map": cls_map[None], "rfcn_bbox_map": bbox_map[None]}
+    dets, valid = detect_batch(out, anchors, im_info, **kw)
+    return dets[0], valid[0]
+
+
 def detect_from_maps(out, anchors, im_info, **kw):
     """One frame's output dict (leading batch dim 1) -> its detections
     (M, 6) and validity (M,): `detect_batch` at B = 1."""

@@ -10,6 +10,12 @@ statistics in training mode.
 Each conv carries the name of its initializer (`init`), which
 ``models/lsfa.py::init_params`` reads to draw weights without JAX.
 
+Padding: `Conv` pads as MXNet does, symmetrically; `SameConv` pads as
+flax's ``padding="SAME"`` does, which the MobileNet trunks use. For a
+stride-2 3x3 on an even input SAME pads 0 before and 1 after, so a
+symmetric pad of 1 gives the same output size with every sample one pixel
+off.
+
 A float32 convolution (every conv of a float32 config, and the DCN offset
 convs of any config) runs in full float32: on a card torch's default for
 cuDNN convolutions is TF32 (10 mantissa bits), so `Conv` and `Deconv2x`
@@ -19,6 +25,7 @@ enter `full_float32` around a float32 call. Nothing is set at import.
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
 import torch.nn.functional as F
@@ -57,17 +64,19 @@ def mx_pad(kernel: int, dilate: int = 1) -> int:
 
 
 class Conv(nn.Conv2d):
-    """Conv2d with MXNet symmetric padding, computing in `dtype`.
+    """Conv2d with MXNet symmetric padding, computing in `dtype`; groups
+    as torch's (groups == cin is a depthwise conv).
 
     init: "lecun" (flax's default, truncated normal with fan-in variance),
-    "he", "normal01" (N(0, 0.01), the reference's init for new heads),
-    "zeros", or "scale_map" (weight 0, bias 1)."""
+    "he", "msra" (flax's variance_scaling(2, fan_in, "normal"): an
+    untruncated normal), "normal01" (N(0, 0.01), the reference's init for
+    new heads), "zeros", or "scale_map" (weight 0, bias 1)."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 1, stride: int = 1,
                  dilate: int = 1, bias: bool = True, dtype=torch.float32,
-                 init: str = "lecun", device=None):
+                 init: str = "lecun", groups: int = 1, device=None):
         super().__init__(cin, cout, kernel, stride=stride, padding=mx_pad(kernel, dilate),
-                         dilation=dilate, bias=bias, device=device)
+                         dilation=dilate, groups=groups, bias=bias, device=device)
         self.dtype = dtype
         self.init = init
 
@@ -76,6 +85,28 @@ class Conv(nn.Conv2d):
         bias = None if self.bias is None else self.bias.to(d)
         with _precision(d):
             return self._conv_forward(x.to(d), self.weight.to(d), bias)
+
+
+def same_pads(n: int, kernel: int, stride: int, dilate: int) -> tuple[int, int]:
+    """flax/XLA "SAME" padding of one axis of size n: (before, after),
+    the odd unit of the total after."""
+    total = max((math.ceil(n / stride) - 1) * stride + (kernel - 1) * dilate + 1 - n, 0)
+    return total // 2, total - total // 2
+
+
+class SameConv(Conv):
+    """`Conv` with flax's ``padding="SAME"``: pads each axis by `same_pads`
+    of its size (the odd unit after), then convolves unpadded."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.padding = (0, 0)
+
+    def forward(self, x):
+        (k, _), (s, _), (d, _) = self.kernel_size, self.stride, self.dilation
+        top, bottom = same_pads(x.shape[-2], k, s, d)
+        left, right = same_pads(x.shape[-1], k, s, d)
+        return super().forward(F.pad(x, (left, right, top, bottom)))
 
 
 class Deconv2x(nn.ConvTranspose2d):
@@ -154,3 +185,12 @@ def max_pool_3x3_s2(x):
 
 def leaky_relu(x, slope: float = 0.1):
     return F.leaky_relu(x, slope)
+
+
+def relu6(x):
+    return F.relu6(x)
+
+
+def global_avg_pool(x):
+    """Mean over H and W of an NCHW tensor, kept as 1x1."""
+    return x.mean(dim=(2, 3), keepdim=True)

@@ -2,12 +2,14 @@
 
 The counterpart of ``lsfa_tpu.models.lsfa``: the key-frame graph
 (`forward_key`: backbone, dilated 3x3, FlowNet warp of the cached key
-feature and Nq-net fusion), the non-key graph (`forward_cur`:
-motion-vector warp, R-net residual, small-net fusion), and the training
-graph (`forward_train`: both, with ChooseFeat selects), each followed by
-the RPN and R-FCN heads of ``models.rfcn.RFCNBase``, which also holds the
-trunk. The 1024-ch feature splits along channels into (rpn_feat,
-rfcn_feat) halves.
+feature and Nq-net or FGFA fusion), the non-key graph (`forward_cur`:
+motion-vector warp, R-net residual fused by add or concat, the F-net,
+small-net fusion), the training graph (`forward_train`: both, with
+ChooseFeat selects) and the batched-GOP graph (`forward_batch_gop`: one
+key frame and N-1 frames FlowNet-warped from it), each followed by the
+RPN and R-FCN heads of ``models.rfcn.RFCNBase``, which also holds the
+trunk (ResNet, MobileNetV2 or Hobot MobileNetV2). The 1024-ch feature
+splits along channels into (rpn_feat, rfcn_feat) halves.
 
 The public methods take and return NHWC tensors with the JAX package's
 channel orders (RPN logits [bg A | fg A], flow (dx, dy)); inside, the
@@ -25,7 +27,7 @@ import torch
 from torch import nn
 
 from lsfa_tpu_torch.config import compute_dtype
-from lsfa_tpu_torch.models.aggregation import NqNet, RNet, SmallNetFuse
+from lsfa_tpu_torch.models.aggregation import FgfaEmbed, FNet, NqNet, RNet, SmallNetFuse
 from lsfa_tpu_torch.models.flownet import FlowNetS
 from lsfa_tpu_torch.models.layers import Conv, Deconv2x, FrozenBN
 from lsfa_tpu_torch.models.resnet import DeformConv2d, ResNetBackbone
@@ -54,36 +56,46 @@ class LSFA(RFCNBase):
                  normalize_rpn: bool = True,
                  pixel_means: Sequence[float] = (0.0, 0.0, 0.0),   # BGR order
                  pixel_scale: float = 1.0, dtype=torch.float32, device=None):
-        unsupported = {
-            "nettype": nettype != "resnet",
-            "fnet_type": fnet_type != "None",
-            "fuse_type": fuse_type != "add",
-            "small_net_fuse_type": small_net_fuse_type != "add",
-            "add_Fgfa_net": add_Fgfa_net and add_lt_aggregation and not add_Nq_net,
-        }
-        bad = [k for k, v in unsupported.items() if v]
-        if bad:
-            raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+        if nettype in ("mobilenet", "mobilenet_hobot") and add_small_net:
+            # the MobileNet trunks expose no per-stage feature to copy
+            raise ValueError("add_small_net requires nettype='resnet' (the MobileNet trunks "
+                             "have no small-net stages)")
         super().__init__(num_classes, num_reg_classes, feat_dim, num_layer, num_anchors,
                          add_dcn, anchor_means, anchor_stds, normalize_rpn, pixel_means,
-                         pixel_scale, dtype, device)
+                         pixel_scale, dtype, device, nettype=nettype)
         self.add_small_net = add_small_net
         self.small_net_stride = small_net_stride
         self.add_rnet = add_rnet
         self.add_lt_aggregation = add_lt_aggregation
+        self.fuse_type = fuse_type
+        if fuse_type not in ("add", "concat"):
+            raise ValueError(f"unknown fuse_type: {fuse_type}")
         kw = dict(dtype=dtype, device=device)
 
+        # the long-term aggregator: the Nq-net before FGFA; neither averages
+        self.aggregator = None
         if add_lt_aggregation:
             self.flownet = FlowNetS(feat_dim, **kw)
-            self.nq_net = NqNet(feat_dim, **kw) if add_Nq_net else None
+            if add_Nq_net:
+                self.nq_net = NqNet(feat_dim, **kw)
+                self.aggregator = "nq_net"
+            elif add_Fgfa_net:
+                self.fgfa_net = FgfaEmbed(feat_dim, **kw)
+                self.aggregator = "fgfa_net"
         if add_rnet:
             self.rnet = RNet(rnet_num_conv, feat_dim, res_diff_bn, **kw)
+        # the JAX package runs the F-net only for 'conv#N' types, so only
+        # those have weights
+        self.fnet = FNet(fnet_type, feat_dim, **kw) if "conv" in fnet_type else None
         if add_small_net:
             stages = 1 if small_net_stride == 4 else 2
             self.small_net_backbone = ResNetBackbone(num_layer, 16, num_stages=stages, **kw)
             self.small_fuse = SmallNetFuse(
                 self.small_net_backbone.out_channels[-1], small_net_stride,
-                small_net_bn_before_fuse, small_net_scale_before_fuse, feat_dim, **kw)
+                small_net_bn_before_fuse, small_net_scale_before_fuse, feat_dim, **kw,
+                fuse_type=small_net_fuse_type)
+        if fuse_type == "concat" and add_rnet:
+            self.fuse_downsample = Conv(2 * feat_dim, feat_dim, 1, init="normal01", **kw)
         self._build_heads()
 
     # ------- building blocks -------
@@ -122,16 +134,24 @@ class LSFA(RFCNBase):
             return fresh_feat
         flow, scale_map = self.flownet(img_cur, img_old)
         warped = _warp(old_feat, flow) * scale_map
-        if self.nq_net is not None:
-            return self.nq_net(warped, fresh_feat)
+        if self.aggregator is not None:
+            return getattr(self, self.aggregator)(warped, fresh_feat)
         return 0.5 * (warped + fresh_feat)
 
     def short_term_propagate(self, key_feat, motion_vector, res_diff, small_img):
-        """MV warp + R-net residual + small-net fusion. NCHW; small_img is
-        the preprocessed, already downscaled frame."""
+        """MV warp + R-net residual (added, or concatenated [warped,
+        residual] and reduced by fuse_downsample) + the F-net + small-net
+        fusion. NCHW; small_img is the preprocessed, already downscaled
+        frame."""
         fused = _warp(key_feat, motion_vector)
         if self.add_rnet:
-            fused = fused + self.rnet(res_diff)
+            r = self.rnet(res_diff)
+            if self.fuse_type == "add":
+                fused = fused + r
+            else:
+                fused = self.fuse_downsample(torch.cat([fused, r], dim=1))
+        if self.fnet is not None:
+            fused = self.fnet(fused)
         if self.add_small_net:
             parts = self.small_net_backbone(small_img)
             small_feat = parts[0] if self.small_net_stride == 4 else parts[1]
@@ -200,6 +220,20 @@ class LSFA(RFCNBase):
         sel = torch.where((eq_flag > 0).reshape(b, 1, 1, 1), key_feat, cur_feat)
         return {**self.head_maps(sel), "key_feat": _nhwc(key_feat), "sel_feat": _nhwc(sel)}
 
+    def forward_batch_gop(self, data_key, data_other):
+        """Batched-GOP inference, DFF-style: data_key (1, H, W, 3) and
+        data_other (N-1, H, W, 3), raw resized BGR. The key frame's fresh
+        feature is FlowNet-warped to each other frame (flow of (other,
+        key)) and scaled by the scale map; returns the inference output
+        dict of the N frames, the key frame first."""
+        x_key = _nchw(self.preprocess(data_key))
+        x_other = _nchw(self.preprocess(data_other))
+        feat_key = self.conv_feat(x_key)
+        n = x_other.shape[0]
+        flow, scale_map = self.flownet(x_other, x_key.expand(n, -1, -1, -1))
+        feat_other = _warp(feat_key.expand(n, -1, -1, -1), flow) * scale_map
+        return self.detection_maps(torch.cat([feat_key, feat_other], dim=0))
+
 
 def resolve_device(device=None) -> torch.device:
     """`device`, or the card when it is None. Without a card None raises:
@@ -251,7 +285,8 @@ def lsfa_from_config(cfg, device=None) -> LSFA:
 @torch.no_grad()
 def init_params(model: nn.Module, generator: torch.Generator) -> None:
     """Draw weights as the flax initializers do: lecun-normal convs
-    (truncated normal, fan-in), he-normal DCN kernels, N(0, 0.01) heads,
+    (truncated normal, fan-in; a grouped conv's fan-in is its group's),
+    he-normal DCN kernels, MSRA (untruncated) FGFA embeddings, N(0, 0.01) heads,
     zero offset convs, scale map 0/1, zero biases, and BN scale 1, bias 0,
     mean 0, var 1. Draws on the generator's device."""
 
@@ -269,6 +304,8 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
                 fan_in_normal(w, 1.0, fan_in)
             elif m.init == "he":
                 fan_in_normal(w, 2.0, fan_in)
+            elif m.init == "msra":
+                nn.init.normal_(w, 0.0, math.sqrt(2.0 / fan_in), generator=generator)
             elif m.init == "normal01":
                 nn.init.normal_(w, 0.0, 0.01, generator=generator)
             elif m.init in ("zeros", "scale_map"):

@@ -2,7 +2,8 @@
 ``lsfa_tpu.models.resnet``: input BN without scale, 7x7/2 stem and 3x3/2
 max pool, full pre-activation units (shortcut from the first
 post-activation when dims change), stride 16 by dilating the last stage,
-and deformable 3x3 convs in the tail units of stages 2-4.
+deformable 3x3 convs in the tail units of stages 2-4, and the optional
+embedded-gaussian non-local block late in stage 3.
 """
 
 from __future__ import annotations
@@ -41,6 +42,37 @@ class DeformConv2d(nn.Module):
                           kernel=3, dilate=self.dilate, groups=self.groups,
                           compute_dtype=self.dtype)
         return out.permute(0, 3, 1, 2)
+
+
+class NonLocalBlock(nn.Module):
+    """Embedded-gaussian non-local block: 1x1 convs to features/2 for the
+    query (conv_x2), key (conv_x1) and value (conv_g), with compress the
+    key and value 3x3/2 max-pooled; softmax(QK^T)V in float32, then a 1x1
+    conv_y back to features, added to the input."""
+
+    def __init__(self, features: int, compress: bool = False, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        mid = features // 2
+        self.compress = compress
+        self.dtype = dtype
+        kw = dict(dtype=dtype, device=device)
+        self.conv_x1 = Conv(features, mid, 1, **kw)
+        self.conv_x2 = Conv(features, mid, 1, **kw)
+        self.conv_g = Conv(features, mid, 1, **kw)
+        self.conv_y = Conv(mid, features, 1, **kw)
+
+    def forward(self, x):
+        b, _, h, w = x.shape
+        x1, x2, g = self.conv_x1(x), self.conv_x2(x), self.conv_g(x)
+        if self.compress:
+            x1, g = max_pool_3x3_s2(x1), max_pool_3x3_s2(g)
+        q = x2.flatten(2).transpose(1, 2).float()            # (B, HW, mid)
+        k = x1.flatten(2).float()                            # (B, mid, HW')
+        v = g.flatten(2).transpose(1, 2).float()             # (B, HW', mid)
+        att = torch.softmax(torch.matmul(q, k), dim=-1)
+        y = torch.matmul(att, v).transpose(1, 2).reshape(b, -1, h, w)
+        return x + self.conv_y(y.to(self.dtype))
 
 
 class PreactUnit(nn.Module):
@@ -91,11 +123,13 @@ class PreactUnit(nn.Module):
 
 class ResNetBackbone(nn.Module):
     """Returns per-stage features [c2, c3, c4, c5, post] (post = the final
-    bn+relu, only when all 4 stages are built)."""
+    bn+relu, only when all 4 stages are built). non_local inserts a
+    `NonLocalBlock` between the last two units of stage 3."""
 
     def __init__(self, num_layer: int = 101, inv_resolution: int = 16,
                  deformable_units=(0, 0, 0, 0), num_deformable_group=(0, 0, 0, 0),
-                 num_stages: int = 4, dtype=torch.float32, device=None):
+                 num_stages: int = 4, dtype=torch.float32, device=None,
+                 non_local: bool = False):
         super().__init__()
         units = RESNET_UNITS[num_layer]
         bottleneck = num_layer >= 50
@@ -128,6 +162,9 @@ class ResNetBackbone(nn.Module):
                 self.add_module(name, unit)
                 names.append(name)
                 cin = filters[s]
+                if non_local and s == 2 and u == n_units - 2:
+                    self.non_local = NonLocalBlock(cin, dtype=dtype, device=device)
+                    names.append("non_local")
             self.stages.append(names)
         if num_stages == 4:
             self.bn1 = FrozenBN(cin, dtype=dtype, device=device)

@@ -1,7 +1,8 @@
 """The single-frame R-FCN baseline and the detector LSFA is built on.
 
 The counterpart of ``lsfa_tpu.models.rfcn``. `RFCNBase` holds what R-FCN
-and LSFA share: the ResNet trunk with the dilated ``feat_conv_3x3``, the
+and LSFA share: the trunk (ResNet, or for LSFA a MobileNetV2 trunk by
+`nettype`, `build_trunk`) with the dilated ``feat_conv_3x3``, the
 on-device normalization of raw BGR frames, and the RPN and R-FCN heads on
 the (rpn_feat, rfcn_feat) channel halves of the feature, with the head
 conventions of the JAX package (RPN logits [bg A | fg A] and deltas in
@@ -23,7 +24,27 @@ import torch
 from torch import nn
 
 from lsfa_tpu_torch.models.layers import Conv
+from lsfa_tpu_torch.models.mobilenet import MobileNetV2Backbone, MobileNetV2HobotBackbone
 from lsfa_tpu_torch.models.resnet import ResNetBackbone
+
+
+NETTYPES = ("resnet", "mobilenet", "mobilenet_hobot")
+
+
+def build_trunk(nettype: str, num_layer: int, add_dcn: bool, dtype, device) -> nn.Module:
+    """The backbone a network.nettype names, at stride 16: ResNet-num_layer
+    (DCN in the tail units of stages 2-4 when add_dcn), MobileNetV2 with
+    ReLU6, or the Hobot MobileNetV2. ValueError for any other name."""
+    kw = dict(dtype=dtype, device=device)
+    if nettype == "resnet":
+        dcn_u = (0, 1, 1, 3) if add_dcn else (0, 0, 0, 0)
+        dcn_g = (0, 4, 4, 4) if add_dcn else (0, 0, 0, 0)
+        return ResNetBackbone(num_layer, 16, dcn_u, dcn_g, **kw)
+    if nettype == "mobilenet":
+        return MobileNetV2Backbone(relu6=True, inv_resolution=16, **kw)
+    if nettype == "mobilenet_hobot":
+        return MobileNetV2HobotBackbone(inv_resolution=16, **kw)
+    raise ValueError(f"unknown nettype: {nettype!r} (one of {', '.join(NETTYPES)})")
 
 
 def nchw(x):
@@ -43,7 +64,8 @@ class RFCNBase(nn.Module):
     def __init__(self, num_classes: int, num_reg_classes: int, feat_dim: int, num_layer: int,
                  num_anchors: int, add_dcn: bool, anchor_means: Sequence[float],
                  anchor_stds: Sequence[float], normalize_rpn: bool,
-                 pixel_means: Sequence[float], pixel_scale: float, dtype, device):
+                 pixel_means: Sequence[float], pixel_scale: float, dtype, device,
+                 nettype: str = "resnet"):
         super().__init__()
         self.num_classes = num_classes
         self.num_reg_classes = num_reg_classes
@@ -54,9 +76,7 @@ class RFCNBase(nn.Module):
         self.dtype = dtype
         self._device = device
         kw = dict(dtype=dtype, device=device)
-        dcn_u = (0, 1, 1, 3) if add_dcn else (0, 0, 0, 0)
-        dcn_g = (0, 4, 4, 4) if add_dcn else (0, 0, 0, 0)
-        self.backbone = ResNetBackbone(num_layer, 16, dcn_u, dcn_g, **kw)
+        self.backbone = build_trunk(nettype, num_layer, add_dcn, dtype, device)
         self.feat_conv_3x3 = Conv(self.backbone.out_channels[-1], feat_dim, 3, dilate=6,
                                   init="normal01", **kw)
         f32 = torch.float32

@@ -1,6 +1,8 @@
 """The flax -> torch weight bridge (lsfa_tpu_torch.convert): a tiny LSFA,
-the transposed-conv flip, and one bottleneck unit with DCN, each run by
-the JAX package and by the port on the same numpy inputs.
+the transposed-conv flip, the depthwise kernel's layout and one
+bottleneck unit with DCN, each run by the JAX package and by the port on
+the same numpy inputs; and every variant's variable tree (the model family
+of tests/test_torch_variants.py) loaded with strict=True.
 
 Tolerances: float32 on both sides, sums in another order, so 1e-4
 relative and absolute (an error in a layout or a flip is O(1))."""
@@ -17,7 +19,7 @@ from lsfa_tpu.models.layers import deconv_x2
 from lsfa_tpu.models.lsfa import LSFA as JaxLSFA
 from lsfa_tpu.models.resnet import PreactUnit as JaxPreactUnit
 from lsfa_tpu_torch.convert import flax_to_torch
-from lsfa_tpu_torch.models.layers import Deconv2x
+from lsfa_tpu_torch.models.layers import Deconv2x, SameConv
 from lsfa_tpu_torch.models.lsfa import LSFA
 from lsfa_tpu_torch.models.resnet import PreactUnit
 
@@ -139,3 +141,59 @@ def test_bottleneck_preact_unit_with_dcn():
     with torch.no_grad():
         got = tm(torch_in(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).numpy()
     np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_depthwise_kernel_layout():
+    """A flax depthwise conv's kernel (3, 3, 1, C) converts to torch's
+    grouped layout (C, 1, 3, 3) by the plain kernel transpose: the port's
+    SameConv(groups=C) gives flax's output (stride 2, SAME, as the
+    MobileNet blocks' first dw conv)."""
+
+    class Depthwise(fnn.Module):
+        @fnn.compact
+        def __call__(self, x):
+            return fnn.Conv(12, (3, 3), strides=(2, 2), feature_group_count=12,
+                            padding="SAME", use_bias=False, name="dw")(x)
+
+    rng = np.random.default_rng(8)
+    x = rng.normal(0, 1, (2, 10, 14, 12)).astype(np.float32)
+    v = to_numpy(Depthwise().init(jax.random.PRNGKey(4), jnp.asarray(x)))
+    assert v["params"]["dw"]["kernel"].shape == (3, 3, 1, 12)
+    want = np.asarray(Depthwise().apply(v, jnp.asarray(x)))
+    sd = flax_to_torch(v)
+    assert tuple(sd["dw.weight"].shape) == (12, 1, 3, 3)
+    tm = SameConv(12, 12, 3, 2, bias=False, groups=12)
+    tm.load_state_dict({"weight": sd["dw.weight"]}, strict=True)
+    with torch.no_grad():
+        got = tm(torch_in(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).numpy()
+    assert got.shape == want.shape == (2, 5, 7, 12)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def _variant_names():
+    from tests.test_torch_variants import VARIANTS
+
+    return sorted(VARIANTS)
+
+
+@pytest.mark.parametrize("name", _variant_names())
+def test_variant_tree_loads_strict(name):
+    """Every variant's flax variable tree (built abstractly, seeded numbers)
+    maps onto the port model's state_dict with strict=True, each tensor
+    landing where it belongs."""
+    from tests.test_torch_train import flax_shapes
+    from tests.test_torch_variants import variant_kwargs
+
+    kw = variant_kwargs(name)
+    shapes = flax_shapes(JaxLSFA(dtype=jnp.float32, **kw))
+    rng = np.random.default_rng(0)
+    v = jax.tree.map(lambda x: rng.standard_normal(x.shape).astype(np.float32), shapes)
+    sd = flax_to_torch(v)
+    tm = LSFA(**kw)
+    tm.load_state_dict(sd, strict=True)
+    state = tm.state_dict()
+    assert all(torch.equal(state[k], t) for k, t in sd.items())
+    tops = {k.split(".")[0] for k in sd}
+    assert ("fgfa_net" in tops) == (name == "fgfa")
+    assert ("fnet" in tops) == (name == "fnet_conv2")
+    assert ("fuse_downsample" in tops) == (name == "fuse_concat")

@@ -11,6 +11,9 @@ against the JAX package.
   imported by both packages give, through ``convert.flax_to_torch``, the
   same state dict bit for bit on every key, and the same imported,
   missing and unused lists; the port's export equals JAX's.
+* The same holds for the FGFA, concat-fuse, concatv1 small-net and
+  MobileNetV2 variants of tests/test_torch_variants.py, and a MobileNet
+  depthwise kernel is written in MXNet's grouped layout (C, 1, 3, 3).
 * Because export and import share one name map, a systematic misreading
   would cancel in a round trip; the hand-named fixture of
   ``tests/test_mxnet_fixture_independent.py`` (literal reference names,
@@ -69,6 +72,22 @@ def variables(request):
     from seeds."""
     shapes = (_lsfa_shapes if request.param == "lsfa" else _rfcn_shapes)()
     rng = np.random.default_rng(1)
+    return tuple(jax.tree.map(lambda x: rng.standard_normal(x.shape).astype(np.float32),
+                              {"params": shapes["params"], "batch_stats": shapes["batch_stats"]})
+                 for _ in range(2))
+
+
+IMPORT_VARIANTS = ("fgfa", "fuse_concat", "small_concatv1", "mobilenet")
+
+
+@pytest.fixture(scope="module", params=IMPORT_VARIANTS)
+def variant_variables(request):
+    """`variables` for a variant of the model family."""
+    from tests.test_torch_train import flax_shapes
+    from tests.test_torch_variants import variant_kwargs
+
+    shapes = flax_shapes(JaxLSFA(dtype=jnp.float32, **variant_kwargs(request.param)))
+    rng = np.random.default_rng(2)
     return tuple(jax.tree.map(lambda x: rng.standard_normal(x.shape).astype(np.float32),
                               {"params": shapes["params"], "batch_stats": shapes["batch_stats"]})
                  for _ in range(2))
@@ -239,6 +258,48 @@ def test_export_equals_jax(variables, tmp_path):
         np.testing.assert_array_equal(ours[k], theirs[k], err_msg=k)
     back = mxnet_io.load_params(str(tmp_path / "ours.params"))
     assert back.keys() == ours.keys()
+
+
+def test_variant_name_map_equals_jax(variant_variables):
+    test_name_map_equals_jax_on_every_key(variant_variables)
+
+
+def test_variant_import_equals_jax_bit_for_bit(variant_variables, tmp_path):
+    test_import_equals_jax_bit_for_bit(variant_variables, tmp_path)
+
+
+def test_variant_export_equals_jax(variant_variables, tmp_path):
+    test_export_equals_jax(variant_variables, tmp_path)
+
+
+def test_depthwise_kernel_mxnet_layout(tmp_path):
+    """A MobileNet depthwise kernel, flax (3, 3, 1, C), leaves JAX's export
+    as MXNet's (C, 1, 3, 3) and lands in the port's grouped conv weight
+    unchanged: the port's block gives JAX's output."""
+    from lsfa_tpu.models.mobilenet import InvertedResidual as JaxInvertedResidual
+    from lsfa_tpu_torch.models.mobilenet import InvertedResidual
+
+    jm = JaxInvertedResidual(24, stride=2, expand=6, dtype=jnp.float32)
+    rng = np.random.default_rng(3)
+    x = rng.normal(0, 1, (1, 10, 14, 16)).astype(np.float32)
+    v = to_numpy(jm.init(jax.random.PRNGKey(0), jnp.asarray(x)))
+    v = {"params": {"backbone": {"block1_0": v["params"]}},
+         "batch_stats": {"backbone": {"block1_0": v["batch_stats"]}}}
+    flat = jax_import.export_mxnet_lsfa(v)
+    kernel = v["params"]["backbone"]["block1_0"]["dw"]["kernel"]
+    assert kernel.shape == (3, 3, 1, 96) and flat["arg:block1_0_dw_weight"].shape == (96, 1, 3, 3)
+    np.testing.assert_array_equal(flat["arg:block1_0_dw_weight"], kernel.transpose(3, 2, 0, 1))
+    tm = InvertedResidual(16, 24, stride=2, expand=6)
+    state = {"backbone.block1_0." + k: x for k, x in tm.state_dict().items()}
+    state, report = import_mxnet_lsfa(state, flat)
+    assert not report["missing"] and not report["unused"]
+    tm.load_state_dict({k.split(".", 2)[2]: x for k, x in state.items()}, strict=True)
+    want = np.asarray(jm.apply({"params": v["params"]["backbone"]["block1_0"],
+                                "batch_stats": v["batch_stats"]["backbone"]["block1_0"]},
+                               jnp.asarray(x)))
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
 def test_baked_release_unbakes_as_jax(variables):

@@ -98,8 +98,17 @@ def test_jit_without_algsimp_keeps_psroi_division():
 
 @pytest.fixture(scope="module")
 def stepped():
-    jcfg = jax_load_config(CONFIG, overrides=OVERRIDES)
-    cfg = load_config(CONFIG, overrides=OVERRIDES)
+    return step_both(OVERRIDES)
+
+
+def step_both(overrides):
+    """One train step of the JAX package and one of the port on the tiny
+    config with `overrides`, from the same weights, batch and draws.
+    Returns JAX's metrics, gradients and updated parameters (as state-dict
+    entries), the port's metrics and gradients, its model after the step
+    and its state before it."""
+    jcfg = jax_load_config(CONFIG, overrides=overrides)
+    cfg = load_config(CONFIG, overrides=overrides)
     jm = jax_lsfa_from_config(jcfg)
     tm = lsfa_from_config(cfg, device="cpu")
     init_params(tm, torch.Generator().manual_seed(3))
@@ -178,6 +187,14 @@ def test_step_gradients_match_jax(stepped):
 
 
 def test_step_updated_params_match_jax(stepped):
+    assert_updated_params_match(stepped)
+    tm, before = stepped["tm"], stepped["before"]
+    assert float((tm.rfcn_cls.weight.detach() - before["rfcn_cls.weight"]).abs().max()) > 1e-4
+
+
+def assert_updated_params_match(stepped):
+    """The port's parameters after the step within 1e-5 of JAX's, the
+    frozen ones unchanged, and the same parameters unchanged in both."""
     tm, before, want = stepped["tm"], stepped["before"], stepped["jparams"]
     frozen = frozen_names(tm)
     still, jax_still = set(), set()
@@ -190,7 +207,6 @@ def test_step_updated_params_match_jax(stepped):
             jax_still.add(name)
     assert frozen <= still
     assert still == jax_still
-    assert float((tm.rfcn_cls.weight.detach() - before["rfcn_cls.weight"]).abs().max()) > 1e-4
 
 
 def test_train_step_batch_rois_without_ohem(stepped):
