@@ -165,8 +165,38 @@ Phases, each printing one line before the last:
      and one test sweep), which splits build from sweeps (run last: a
      profiled window slows later host launches). Where the profiler
      records no device event, these device times read "not measured".
-Then one JSON line for the kernels and, last, the result line. Any failed
-phase exits non-zero before the result line is printed.
+ 28. the demo: experiments.demo.main with the flagship of phase 4 over 24
+     frames of a 720x1280 SyntheticVideoReader stream: 24 PNGs, each read
+     back (`read_png`, zlib, no PIL) at 720x1280x3, the frame lines with
+     flags 0, 2 to frame 11 and 1 at frame 12, 2 kernel launches per
+     frame; frames/s and ms per PNG written; then run_test with
+     vis_frames=4 over a 14-frame video writes 4 PNGs;
+ 29. learn->detect: tools.overfit_smoke.main() at its defaults (the tiny
+     LSFA, 80 steps) on the card returns 0 with AP[class 3] > 0.49; the
+     loss at steps 0, 20, 40, 60 and 79, ms per step, the top-3 detections;
+ 30. FlowNet-S pretraining: tools.pretrain_flow.main at feat_dim 1024 and
+     batch 4 over 960x576 and 576x960 clips rendered in memory by
+     data.synth.render_video (no encoding), 40 steps: finite losses,
+     photo_first and photo_final, ms per step, peak memory; the
+     checkpoint warm-starts the flagship through init_model's
+     pretrained_flow with its FlowNet tensors bit-equal; a tiny step card
+     against CPU from the same weights and pairs within 1e-5 of
+     max(1, |x|);
+ 31. the train-mode BatchNorms through the all-reduce path: a flagship step
+     with res_diff_bn and small_net_bn_before_fuse under NCCL at world size
+     1 (3 all-reduces of the moments) equals the step without a process
+     group (metrics 1e-5, parameters 1e-6, running statistics 1e-4 of
+     max(1, |x|));
+ 32. bf16 parameter storage: the flagship with tpu.param_dtype bfloat16,
+     its parameter GiB against float32's, one GOP of finite detections and
+     one train_net step that leaves the parameters bfloat16;
+ 33. JPEG-frame evaluation: eval_videos over a record with a pattern and
+     no video_path, 14 frames of 720x1280 from a seeded read_image: the
+     per-frame path, zero MV and residual grids, 2 launches per frame,
+     frames/s.
+Then the script's seconds, one JSON line for the kernels and, last, the
+result line. Any failed phase exits non-zero before the result line is
+printed.
 """
 
 import contextlib
@@ -2199,6 +2229,408 @@ def train_test_phase(dev, nms_cuda, greedy_alive, tmp):
             "train_test_test": test_launches}, err
 
 
+def read_png(path):
+    """An 8-bit RGB PNG as (H, W, 3) uint8: chunks and CRCs checked, rows
+    of filter type 0 only (what utils.vis.write_png writes)."""
+    import struct
+    import zlib
+
+    data = Path(path).read_bytes()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
+    pos, idat, size = 8, b"", None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        crc = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0]
+        check(zlib.crc32(kind + body) & 0xFFFFFFFF == crc, f"{path}: bad CRC in {kind!r}")
+        if kind == b"IHDR":
+            w, h, depth, color = struct.unpack(">IIBB", body[:10])
+            check((depth, color) == (8, 2), f"{path}: depth {depth}, color type {color}")
+            size = (h, w)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    h, w = size
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    check(not rows[:, 0].any(), f"{path}: a row filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def demo_phase(dev, model, nms_cuda, tmp):
+    """Phase 28: the annotated demo at full width, and run_test's --vis.
+    Returns {path: kernel launches}."""
+    import io
+
+    import torch
+
+    from lsfa_tpu_torch.config import load_config
+    from lsfa_tpu_torch.data.loader import SyntheticPreparedVideo, SyntheticVideoReader
+    from lsfa_tpu_torch.experiments import demo
+    from lsfa_tpu_torch.experiments.lsfa_test import run_test
+    from lsfa_tpu_torch.utils import vis
+
+    n = 24
+    out = tmp / "demo_frames"
+    written = []
+    write_png = vis.write_png
+
+    def timed_write(path, rgb):
+        t0 = time.perf_counter()
+        write_png(path, rgb)
+        written.append(time.perf_counter() - t0)
+
+    text = io.StringIO()
+    torch.cuda.synchronize()
+    nms_cuda.LAUNCHES = 0
+    vis.write_png = timed_write
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(text):
+            frames = demo.main(["--cfg", str(LSFA_CONFIG), "--video", str(tmp / "demo.mp4"),
+                                "--out", str(out), "--max-frames", str(n)],
+                               open_video=lambda p: SyntheticVideoReader(p, *TRAIN_HW,
+                                                                         num_frames=n),
+                               model=model)
+    finally:
+        vis.write_png = write_png
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"demo": nms_cuda.LAUNCHES}
+    lines = [ln for ln in text.getvalue().splitlines() if ln.startswith("frame ")]
+    flags = [0] + [2] * 11 + [1] + [2] * 11
+    check([f for f, _ in frames] == flags and len(lines) == n
+          and [ln.split()[2] for ln in lines] == [f"flag={f}" for f in flags],
+          f"demo: frame lines {lines[:3]}..., flags {[f for f, _ in frames]}")
+    check(launches["demo"] == 2 * n, f"demo: {launches['demo']} kernel launches, not 2 per frame")
+    pngs = sorted(out.iterdir())
+    check([p.name for p in pngs] == [f"{i:06d}.png" for i in range(n)], f"demo wrote {pngs[:3]}")
+    for p in pngs:
+        check(read_png(p).shape == TRAIN_HW + (3,), f"{p.name}: {read_png(p).shape}")
+    for _, d in frames:
+        check(bool(np.isfinite(d["scores"]).all() and np.isfinite(d["boxes"]).all()),
+              "demo: non-finite detections")
+    n_dets = [len(d["labels"]) for _, d in frames]
+    print(f"demo: experiments.demo.main over {n} frames of a {TRAIN_HW[0]}x{TRAIN_HW[1]} "
+          f"SyntheticVideoReader stream, the flagship of phase 4 at {BUCKET[0]}x{BUCKET[1]}: "
+          f"{n} PNGs read back at {TRAIN_HW[0]}x{TRAIN_HW[1]}x3, flags 0, 2 x 11, 1, 2 x 11, "
+          f"{launches['demo']} kernel launches (2 per frame); {n / wall:.2f} frames/s over "
+          f"{wall:.2f} s with the host chain, drawing and writing; write_png "
+          f"{statistics.median(written) * 1e3:.1f} ms per PNG (median); detections per frame "
+          f"{min(n_dets)}-{max(n_dets)}")
+
+    # run_test's --vis over a one-video tree
+    dataset_path = tmp / "ILSVRC2015_vis"
+    image_set = write_vid_tree(dataset_path, {"vis_a": 14}, 576, 960, seed=28)
+    cfg = load_config(str(LSFA_CONFIG), overrides={
+        "output_path": str(tmp / "out_vis"),
+        "dataset": {"root_path": str(tmp), "dataset_path": str(dataset_path),
+                    "test_image_set": image_set}})
+
+    def open_video(path, *args, **kw):
+        return SyntheticPreparedVideo(path, *args, num_frames=14, content_hw=CONTENT,
+                                      im_scale=600 / 576, **kw)
+
+    nms_cuda.LAUNCHES = 0
+    run_test(cfg, vis_frames=4, open_video=open_video, model=model,
+             read_image=lambda p: seeded_image(p, video_hw=(576, 960)))
+    launches["launcher_vis"] = nms_cuda.LAUNCHES
+    vis_dir = Path(cfg.output_path) / cfg.symbol / cfg.dataset.test_image_set / "vis"
+    shots = sorted(vis_dir.iterdir())
+    check(len(shots) == 4 and all(read_png(p).shape == (576, 960, 3) for p in shots),
+          f"run_test(vis_frames=4) wrote {[p.name for p in shots]}")
+    check(launches["launcher_vis"] == 4 + 2 * 2,
+          f"run_test for --vis: {launches['launcher_vis']} kernel launches, not 4 + 2 x 2")
+    print(f"demo: run_test(vis_frames=4) over a 14-frame video wrote {[p.name for p in shots]} "
+          f"at 576x960x3; {launches['launcher_vis']} kernel launches (one GOP, 2 tail frames)")
+    return launches
+
+
+def overfit_phase(nms_cuda):
+    """Phase 29: learn->detect on the card. Returns kernel launches."""
+    import torch
+
+    from lsfa_tpu_torch.tools import overfit_smoke
+
+    report = {}
+    text = []
+    torch.cuda.synchronize()
+    nms_cuda.LAUNCHES = 0
+    rc = overfit_smoke.main(report=report, log=text.append)
+    torch.cuda.synchronize()
+    launches = nms_cuda.LAUNCHES
+    ap = float(report["ap"][overfit_smoke.GT_CLASS - 1])
+    check(rc == 0 and ap > overfit_smoke.AP_GATE,
+          f"overfit_smoke on the card returned {rc}, AP[class 3] {ap}: {text}")
+    hist = report["history"]
+    check(len(hist) == 80 and all(np.isfinite(m["total_loss"]) for m in hist),
+          f"overfit_smoke: {len(hist)} steps")
+    check(launches == 80 + 2, f"overfit_smoke: {launches} kernel launches, not 80 steps + 2")
+    d = report["detections"]
+    top = [f"cls {d['labels'][t]} score {d['scores'][t]:.3f} box "
+           f"{[round(float(x), 1) for x in d['boxes'][t]]}" for t in np.argsort(-d["scores"])[:3]]
+    print(f"learn->detect: tools.overfit_smoke.main() on the card (tiny LSFA, 80 steps of "
+          f"SGD 2e-3): returned {rc}, AP[class 3] {ap:.3f} (gate > {overfit_smoke.AP_GATE}); "
+          f"total_loss at steps 0/20/40/60/79 "
+          f"{[round(hist[i]['total_loss'], 4) for i in (0, 20, 40, 60, 79)]}; "
+          f"{report['train_seconds'] / 80 * 1e3:.2f} ms per step (host clock, metrics read at "
+          f"5 steps); top-3 {top}; {launches} kernel launches (80 steps + 2 in detection)")
+    return launches
+
+
+class RenderedVideos:
+    """open_video for tools.pretrain_flow: the clip of each path rendered
+    in memory by data.synth.render_video (seeded by the path's index; no
+    encoding), at the size the dataset gives that index."""
+
+    def __init__(self, sizes, n_frames):
+        self.sizes, self.n_frames = sizes, n_frames
+
+    def __call__(self, path):
+        from lsfa_tpu_torch.data.synth import render_video
+
+        vi = int(Path(path).stem.rsplit("_", 1)[1])
+        frames, _ = render_video(*self.sizes[vi % len(self.sizes)], self.n_frames,
+                                 np.random.default_rng(vi))
+
+        class Reader:
+            def get_num_frames(self):
+                return len(frames)
+
+            def load(self, gop, pos, representation):
+                return frames[gop * GOP + pos]
+
+        return Reader()
+
+
+def pretrain_flow_phase(dev, nms_cuda, tmp):
+    """Phase 30: FlowNet-S pretraining at full width, its checkpoint as
+    the flagship's warm start, and a tiny step card against CPU."""
+    import torch
+
+    from lsfa_tpu_torch.config import get_default_config
+    from lsfa_tpu_torch.models.flownet import FlowNetS
+    from lsfa_tpu_torch.models.lsfa import init_params
+    from lsfa_tpu_torch.tools import pretrain_flow
+    from lsfa_tpu_torch.train.driver import init_model
+
+    out = tmp / "flow_ckpt"
+    steps, n_videos, n_frames = 40, 2, 13           # offsets reach 12 frames
+    t0 = time.perf_counter()
+    opener = RenderedVideos(pretrain_flow.SIZES, n_frames)
+    report = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    nms_cuda.LAUNCHES = 0
+    rc = pretrain_flow.main(["--steps", str(steps), "--batch", "4", "--feat-dim", "1024",
+                             "--videos", str(n_videos), "--frames", str(n_frames),
+                             "--log-every", "10", "--out", str(out), "--data", str(tmp / "flow")],
+                            open_video=opener, report=report)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    wall = time.perf_counter() - t0
+    check(rc == 0 and nms_cuda.LAUNCHES == 0, f"pretrain_flow: rc {rc}, {nms_cuda.LAUNCHES} "
+                                              f"kernel launches")
+    logged = report["logged"]
+    check(all(np.isfinite(x) for _, a, b in logged for x in (a, b)), f"pretrain_flow {logged}")
+    summary = json.loads((out / "flow_pretrain.json").read_text())
+    saved = torch.load(out / f"{steps}.pt", map_location="cpu", weights_only=True)["model"]
+    cfg = get_default_config()
+    cfg.network.pretrained_flow = str(out)
+    warm = init_model(cfg, 0, dev).state_dict()
+    diff = [k for k in saved if not torch.equal(warm[k].cpu(), saved[k])]
+    check(not diff and len(saved) > 0, f"the warm start differs from the checkpoint in {diff[:3]}")
+    del warm
+
+    # one tiny step, card against CPU, from the same weights and pairs
+    cpu = FlowNetS(feat_dim=32)
+    init_params(cpu, torch.Generator().manual_seed(1))
+    card = FlowNetS(feat_dim=32, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(30)
+    cur = torch.from_numpy(rng.integers(0, 256, (2, 96, 128, 3)).astype(np.float32))
+    old = torch.roll(cur, 3, dims=2)
+    losses = [pretrain_flow.make_step(m, 1e-4, 0.01)(cur.to(d), old.to(d))
+              for m, d in ((cpu, "cpu"), (card, dev))]
+    err = max(abs(float(a) - float(b)) / max(1.0, abs(float(a)))
+              for a, b in zip(losses[0], losses[1]))
+    check(err <= 1e-5, f"pretrain_flow tiny step card vs CPU: {err:.2e}")
+    print(f"flow pretraining: tools.pretrain_flow.main at feat_dim 1024, batch 4, {steps} steps "
+          f"over 960x576 and 576x960 clips rendered in memory ({n_videos} x {n_frames} frames): "
+          f"returned {rc}, losses finite at steps {[s for s, _, _ in logged]}, photo_first "
+          f"{summary['photo_first']}, photo_final {summary['photo_final']}; "
+          f"{report['seconds'] / steps * 1e3:.1f} ms per step (host clock, pairs drawn on the "
+          f"host), peak {peak / 2**30:.2f} GiB, {wall:.1f} s with rendering; the checkpoint "
+          f"warm-starts the flagship through init_model(pretrained_flow): {len(saved)} FlowNet "
+          f"tensors bit-equal; a tiny step card vs CPU: loss and photo within {err:.2e} of "
+          f"max(1, |x|); 0 kernel launches")
+
+
+def bn_allreduce_phase(dev, nms_cuda):
+    """Phase 31: the train-mode BatchNorms through the all-reduce path: a
+    flagship step with res_diff_bn and small_net_bn_before_fuse under NCCL
+    at world size 1 against the same step with no process group. Returns
+    kernel launches."""
+    import socket
+
+    import torch
+
+    from lsfa_tpu_torch.config import load_config
+    from lsfa_tpu_torch.data.loader import batch_to_device, synthetic_train_batches
+    from lsfa_tpu_torch.parallel import mesh
+    from lsfa_tpu_torch.train.driver import init_model
+    from lsfa_tpu_torch.train.train_step import TrainSettings, draw_uniforms
+
+    cfg = load_config(None, overrides={"network": BN_VARIANTS})
+    model = init_model(cfg, 0, dev)
+    calibrate_input_bn(model)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    host = synthetic_train_batches(1, BUCKET, seed=31, num_classes=cfg.dataset.NUM_CLASSES,
+                                   max_gt=cfg.tpu.max_gt_boxes, content_hw=CONTENT)[0]
+    host["eq_flag"][:] = 0.0                 # the R-net and the small-net fusion run
+    batch = batch_to_device(host, dev)
+    draws = draw_uniforms(TrainSettings.from_config(cfg), batch,
+                          torch.Generator(device=dev).manual_seed(31))
+    reduced = []
+    sums = mesh.sum_over_ranks_with_grad
+
+    def counted(t):
+        reduced.append(tuple(t.shape))
+        return sums(t)
+
+    def step():
+        metrics, params = one_step(cfg, model, state, batch, draws)
+        stats = {k: v.detach().clone() for k, v in model.named_buffers()
+                 if k.endswith(("running_mean", "running_var"))}
+        return metrics, params, stats
+
+    nms_cuda.LAUNCHES = 0
+    plain = [step() for _ in range(2)]
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=port, WORLD_SIZE=1, RANK=0, LOCAL_RANK=0)
+    mesh.sum_over_ranks_with_grad = counted
+    try:
+        with env_vars(**env):
+            mesh.initialize_distributed()
+            try:
+                check(torch.distributed.get_backend() == "nccl", "backend")
+                dist_m, dist_p, dist_s = step()
+            finally:
+                torch.distributed.destroy_process_group()
+    finally:
+        mesh.sum_over_ranks_with_grad = sums
+    launches = nms_cuda.LAUNCHES
+    (m0, p0, s0), (_, p1, _) = plain
+    check(len(reduced) == 3, f"the step entered the BatchNorms' all-reduce {len(reduced)} times")
+    met_err = max(abs(dist_m[k] - m0[k]) / max(abs(m0[k]), 1e-12) for k in m0)
+    par_err = max(float(((dist_p[k] - p0[k]).abs() / p0[k].abs().clamp(min=1.0)).max())
+                  for k in p0)
+    stat_err = max(float(((dist_s[k] - s0[k]).abs() / s0[k].abs().clamp(min=1.0)).max())
+                   for k in s0)
+    spread = max(float((p1[k] - p0[k]).abs().max()) for k in p0)
+    check(all(np.isfinite(v) for v in dist_m.values()), f"BN step under NCCL {dist_m}")
+    check(met_err <= 1e-5 and par_err <= 1e-6 and stat_err <= 1e-4,
+          f"the BN step through NCCL differs from the plain step: metrics {met_err:.2e}, "
+          f"parameters {par_err:.2e}, running statistics {stat_err:.2e}")
+    check(launches == 3, f"BN all-reduce phase: {launches} kernel launches, not 3 steps")
+    del model, state, plain
+    print(f"BN all-reduce: the flagship with res_diff_bn and small_net_bn_before_fuse, one step "
+          f"under NCCL at world size 1 (the moments of the 3 train-mode BatchNorms summed in "
+          f"{len(reduced)} differentiable all-reduces, shapes {sorted(set(reduced))}) equals the "
+          f"step with no process group: metrics {met_err:.2e} relative, parameters "
+          f"{par_err:.2e} and running statistics {stat_err:.2e} of max(1, |x|) (two plain steps "
+          f"differ by {spread:.2e}); {launches} kernel launches")
+    return launches
+
+
+def bf16_params_phase(dev, nms_cuda):
+    """Phase 32: the flagship with tpu.param_dtype bfloat16. Returns
+    {path: kernel launches}."""
+    import torch
+
+    from lsfa_tpu_torch.config import load_config
+    from lsfa_tpu_torch.data.loader import synthetic_train_batches
+    from lsfa_tpu_torch.eval.tester import StreamingDetector
+    from lsfa_tpu_torch.train.driver import init_model, train_net
+
+    cfg = load_config(None, overrides={"tpu": {"param_dtype": "bfloat16"}})
+    model = init_model(cfg, 0, dev)
+    params = list(model.parameters())
+    check({p.dtype for p in params} == {torch.bfloat16}, "bf16 storage")
+    check(all(b.dtype != torch.bfloat16 for b in model.buffers()), "bf16 buffers")
+    gib = sum(p.numel() * p.element_size() for p in params) / 2**30
+    gib32 = sum(p.numel() * 4 for p in params) / 2**30
+    calibrate_input_bn(model)
+    det = StreamingDetector(model, cfg, BUCKET)
+    torch.cuda.synchronize()
+    nms_cuda.LAUNCHES = 0
+    kd, kv, cd, cv = det.process_prepared_window(synth_gops(cfg, 1, 32), first=True)
+    torch.cuda.synchronize()
+    launches = {"bf16_gop": nms_cuda.LAUNCHES}
+    check(bool(torch.isfinite(kd).all() and torch.isfinite(cd).all()) and int(kv.sum()) > 0,
+          "bf16 parameters: non-finite or no detections")
+    check(launches["bf16_gop"] == 4, f"bf16 GOP: {launches['bf16_gop']} kernel launches")
+    metrics = []
+    batches = synthetic_train_batches(1, BUCKET, seed=32, num_classes=cfg.dataset.NUM_CLASSES,
+                                      max_gt=cfg.tpu.max_gt_boxes, content_hw=CONTENT)
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    nms_cuda.LAUNCHES = 0
+    train_net(cfg, batches=batches, max_steps=1, model=model,
+              metrics_hook=lambda s, m: metrics.append({k: float(v) for k, v in m.items()}))
+    launches["bf16_train"] = nms_cuda.LAUNCHES
+    check(len(metrics) == 1 and all(np.isfinite(v) for v in metrics[0].values()),
+          f"bf16 train step {metrics}")
+    check({p.dtype for p in model.parameters()} == {torch.bfloat16}, "bf16 after the step")
+    moved = sum(not torch.equal(p, before[k]) for k, p in model.named_parameters())
+    check(moved > 0 and launches["bf16_train"] == 1,
+          f"bf16 step: {moved} parameters moved, {launches['bf16_train']} launches")
+    print(f"bf16 parameters: the flagship with tpu.param_dtype bfloat16 holds {gib:.3f} GiB of "
+          f"parameters ({gib32:.3f} GiB in float32), BatchNorm statistics float32; one GOP "
+          f"through StreamingDetector: finite, {int(kv.sum())} + {int(cv.sum())} valid "
+          f"detections, {launches['bf16_gop']} kernel launches; one train_net step: total_loss "
+          f"{metrics[0]['total_loss']:.4f}, {moved} parameters moved, all still bfloat16, "
+          f"{launches['bf16_train']} launch")
+    return launches
+
+
+def jpeg_eval_phase(dev, model, cfg, nms_cuda):
+    """Phase 33: eval_videos over a record of JPEG frames (pattern, no
+    video_path), read through a seeded read_image. Returns kernel
+    launches."""
+    import torch
+
+    from lsfa_tpu_torch.data.loader import EvalLoader
+    from lsfa_tpu_torch.eval.driver import eval_videos
+
+    n = 14
+    rec = {"vid_path": "jpeg_video", "frame_seg_len": n, "pattern": "jpeg_video/%06d.JPEG",
+           "height": TRAIN_HW[0], "width": TRAIN_HW[1]}
+    items = list(EvalLoader([rec], cfg, read_image=seeded_image))
+    check(all(not i["motion_vector"].any() and not i["res_diff"].any() for i in items),
+          "a JPEG record's MV or residual grid is not zero")
+    calls = []
+    torch.cuda.synchronize()
+    nms_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with recorded_schedule(calls):
+        dets = eval_videos(model, cfg, [rec], read_image=seeded_image, logger=Lines())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = nms_cuda.LAUNCHES
+    check_detections("jpeg eval", dets, n)
+    check([c["kind"] for c in calls] == ["frame"] * n
+          and [c["flag"] for c in calls] == [0] + [2] * 11 + [1, 2],
+          f"jpeg eval schedule {[(c['kind'], c.get('flag')) for c in calls]}")
+    check(launches == 2 * n, f"jpeg eval: {launches} kernel launches, not 2 per frame")
+    print(f"jpeg eval: eval_videos over a record of {n} JPEG frames of {TRAIN_HW[0]}x"
+          f"{TRAIN_HW[1]} (pattern, no video_path; a seeded read_image): the per-frame path, "
+          f"flags 0, 2 x 11, 1, 2, zero MV and residual grids, {len(dets)} finite records, "
+          f"{launches} kernel launches (2 per frame); {n / wall:.2f} frames/s with the host "
+          f"chain")
+    return launches
+
+
 def main():
     import os
 
@@ -2411,6 +2843,19 @@ def main():
           f"{bound_ms / k_ms:.3f}")
     print(f"phases 1-26: {time.perf_counter() - T0:.1f} s since the script started")
 
+    # 28-33: the entry points of the last slice and the paths that raised
+    with tempfile.TemporaryDirectory() as scratch:
+        scratch = Path(scratch)
+        demo_launches = demo_phase(dev, model, nms_cuda, scratch)
+        overfit_launches = overfit_phase(nms_cuda)
+        pretrain_flow_phase(dev, nms_cuda, scratch)
+    bn_ar_launches = bn_allreduce_phase(dev, nms_cuda)
+    bf16_launches = bf16_params_phase(dev, nms_cuda)
+    jpeg_launches = jpeg_eval_phase(dev, model, cfg, nms_cuda)
+    check(torch.backends.cudnn.allow_tf32 is True,
+          "torch.backends.cudnn.allow_tf32 was left changed by the package")
+    print(f"phases 1-33: {time.perf_counter() - T0:.1f} s since the script started")
+
     # 27. launches and device time by torch.profiler, last: after a profiled
     # window the host's launches stay slower, which would bias phases 3-26
     rfcn_account(dev)
@@ -2439,6 +2884,7 @@ def main():
         print(line)
 
     rpn = next(s for s in shapes if s["shape"] == [12, 2048])
+    print(f"script: {time.perf_counter() - T0:.1f} s in all, on {smi}")
     print(json.dumps({"kernels": [{
         "name": "nms_sweep", "route": "cuda",
         "source": "lsfa_tpu_torch/csrc/nms_sweep.cu",
@@ -2447,7 +2893,9 @@ def main():
                      + sum(eval_launches.values()) + sum(rt_launches.values())
                      + sum(launcher_launches.values()) + warm_launches
                      + sum(tt_launches.values()) + sum(mobile_launches.values())
-                     + hobot_launches + gop_launches),
+                     + hobot_launches + gop_launches + sum(demo_launches.values())
+                     + overfit_launches + bn_ar_launches + sum(bf16_launches.values())
+                     + jpeg_launches),
         "max_abs_err": max_err,
         "ms": rpn["us"] / 1e3, "plain_ms": rpn["plain_us"] / 1e3,
         "bound_ms": rpn["bound_us"] / 1e3, "bound_by": rpn["bound_by"], "library_ms": None,
@@ -2456,7 +2904,9 @@ def main():
                              "train_bn": bn_launches, **eval_launches, **rt_launches,
                              **launcher_launches, "warm_train": warm_launches,
                              **tt_launches, **mobile_launches, "hobot_stream": hobot_launches,
-                             "batch_gop": gop_launches},
+                             "batch_gop": gop_launches, **demo_launches,
+                             "overfit_smoke": overfit_launches, "bn_allreduce": bn_ar_launches,
+                             **bf16_launches, "jpeg_eval": jpeg_launches},
         "shapes": shapes}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -650,8 +650,9 @@ class EvalLoader:
     stream's end (the reference meets one at every video's last frame)
     from read_image(pattern % frame) through the host image chain, with
     zero MV and residual, in the stream's wire format. A record without a
-    compressed stream raises: the port reads video frames from the
-    stream, where JAX would read every frame's JPEG."""
+    compressed stream (no video_path: a VID tree of JPEG frames) reads
+    every frame so, in BGR. A record whose video_path does not open
+    raises (open_video's error)."""
 
     def __init__(self, video_roidb, cfg, bucket_hw=None,
                  full_frames: bool = False, open_video=None, read_image=None):
@@ -703,12 +704,7 @@ class EvalLoader:
             # _tail_start were served by whole GOPs
             start = int(rec.get("_tail_start", 0))
             video = rec.get("video_path")
-            if video is None:
-                raise NotImplementedError(
-                    f"record {rec.get('vid_path', vid_idx)!r} has no compressed stream "
-                    f"(video_path): the port reads a video's frames from its stream, and "
-                    f"takes images only for frames past the stream's end")
-            prep = self.open_video(
+            prep = None if video is None else self.open_video(
                 video, cfg, self.bucket_hw,
                 frames_mode=0 if self.full_frames else None,
                 oracle=rec.get("oracle") if getattr(cfg.network, "oracle_mv", False) else None)
@@ -719,11 +715,11 @@ class EvalLoader:
                     flag = 1
                 else:
                     flag = 2
-                if fid < prep.num_frames:
+                if prep is not None and fid < prep.num_frames:
                     data, small, mv, res, info = prep.frame(fid)
                 else:
-                    data, small, info, mv, res = self._host_frame(rec["pattern"] % fid,
-                                                                  prep.wire_format)
+                    data, small, info, mv, res = self._host_frame(
+                        rec["pattern"] % fid, "bgr8" if prep is None else prep.wire_format)
                 yield {"video_index": vid_idx, "frame_id": fid, "flag": flag,
                        "data": data, "small": small, "im_info": info,
                        "motion_vector": mv, "res_diff": res}

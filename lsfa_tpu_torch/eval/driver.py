@@ -14,8 +14,10 @@ The loops open a record's stream with ``data.loader.PreparedVideo``,
 which needs the native decoder. On a machine where it does not load, pass
 `open_video`, a callable with `PreparedVideo`'s signature, such as a
 ``functools.partial`` of ``data.loader.SyntheticPreparedVideo``. A frame
-past the end of its stream is read with `read_image` (default: the JPEG
-reader, which needs PIL) through the host image chain.
+past the end of its stream, and every frame of a record without a stream
+(no ``video_path``: a VID tree of JPEG frames, read at its ``pattern``),
+is read with `read_image` (default: the JPEG reader, which needs PIL)
+through the host image chain, with zero MV and residual.
 
 Against the JAX package: the last window of a video is not padded to the
 window length (an eager detector has no fixed window shape; the padded
@@ -36,7 +38,8 @@ import numpy as np
 from lsfa_tpu_torch.data import coviar
 from lsfa_tpu_torch.data.dataset import ImageNetVID
 from lsfa_tpu_torch.data.image import pick_bucket
-from lsfa_tpu_torch.data.loader import GOP_SIZE, EvalLoader, PreparedVideo, prepared_available
+from lsfa_tpu_torch.data.loader import (
+    GOP_SIZE, EvalLoader, PreparedVideo, prepared_available, read_jpeg_bgr)
 from lsfa_tpu_torch.data.prefetch import DevicePrefetcher
 from lsfa_tpu_torch.eval.rfcn_tester import RFCNDetector
 from lsfa_tpu_torch.eval.tester import StreamingDetector, collect_detections
@@ -85,10 +88,12 @@ def save_det_cache(det_cache, detections):
             pickle.dump(detections, f, protocol=pickle.HIGHEST_PROTOCOL)
 
 
-def group_videos_by_bucket(video_roidb, cfg):
+def group_videos_by_bucket(video_roidb, cfg, read_image=None):
     """Partition video records by the image bucket their resized frames
     fit, so that portrait and landscape streams each run at their own
-    shape. A record without height and width is sized from its stream."""
+    shape. A record without height and width is sized from its stream, or
+    where it has none on disk that the native decoder opens, from its
+    first frame's image (`read_image`, default the JPEG reader)."""
     target, max_size = cfg.SCALES[0]
     buckets = [tuple(cfg.tpu.default_bucket)] + [tuple(b) for b in cfg.tpu.image_buckets]
     groups: dict = {}
@@ -96,11 +101,14 @@ def group_videos_by_bucket(video_roidb, cfg):
         h, w = rec.get("height", 0), rec.get("width", 0)
         if not h or not w:
             video = rec.get("video_path")
-            if not video or not os.path.exists(video):
+            if video and coviar.available() and os.path.exists(video):
+                reader = coviar.VideoReader(video)
+                h, w = reader.height, reader.width
+            elif "pattern" in rec:
+                h, w = (read_image or read_jpeg_bgr)(rec["pattern"] % 0).shape[:2]
+            else:
                 raise ValueError(f"record {rec.get('vid_path')!r} has no height and width "
-                                 f"and no stream on disk to read them from")
-            reader = coviar.VideoReader(video)
-            h, w = reader.height, reader.width
+                                 f"and no stream or image to read them from")
         groups.setdefault(pick_bucket(h, w, buckets, target, max_size), []).append(rec)
     return groups
 
@@ -111,10 +119,13 @@ def _gop_eval_reason(rec, cfg, opened: bool = False) -> str | None:
     the GOP size: a window keys every GOP, so a multiple like 24 would
     make more key frames than the streaming schedule. opened: the caller
     opens streams itself (`open_video`), so the file and the native
-    library are not asked for."""
+    library are not asked for; a record without a stream (JPEG frames)
+    takes the per-frame path whatever opens streams."""
+    video = rec.get("video_path")
+    if video is None:
+        return "no compressed stream on disk"
     if not opened:
-        video = rec.get("video_path")
-        if video is None or not os.path.exists(video):
+        if not os.path.exists(video):
             return "no compressed stream on disk"
         if not prepared_available():
             return "native prepared-decode plane not built"
@@ -233,7 +244,7 @@ def eval_videos(model, cfg, video_roidb, det_cache: str | None = None, logger=No
     window = int(getattr(cfg.tpu, "eval_gop_window", 2))
     timer = PhaseTimer()
     detections = {}
-    for bucket, recs in group_videos_by_bucket(video_roidb, cfg).items():
+    for bucket, recs in group_videos_by_bucket(video_roidb, cfg, read_image).items():
         log(f"bucket {bucket}: {len(recs)} videos"
             + (" [long-term aggregation OFF]" if lt_off else ""))
         det = StreamingDetector(model, cfg, bucket, lt_off=lt_off)
@@ -295,7 +306,7 @@ def eval_videos_timeplex(model, cfg, video_roidb, streams: int = 3,
     window = int(getattr(cfg.tpu, "eval_gop_window", 2))
     timer = PhaseTimer()
     detections = {}
-    for bucket, recs in group_videos_by_bucket(video_roidb, cfg).items():
+    for bucket, recs in group_videos_by_bucket(video_roidb, cfg, read_image).items():
         det = StreamingDetector(model, cfg, bucket, lt_off=lt_off)
         gop_recs, frame_recs = _split_by_path(recs, cfg, open_video is not None, log)
         n_streams = max(1, min(streams, len(gop_recs)))
@@ -397,7 +408,7 @@ def eval_videos_rfcn(model, cfg, video_roidb, det_cache: str | None = None, logg
     timer = PhaseTimer()
     detections = {}
     frame_counter = 0
-    for bucket, recs in group_videos_by_bucket(video_roidb, cfg).items():
+    for bucket, recs in group_videos_by_bucket(video_roidb, cfg, read_image).items():
         if max_frames is not None and frame_counter >= max_frames:
             break
         log(f"bucket {bucket}: {len(recs)} videos (rfcn per-frame)")

@@ -5,17 +5,21 @@ Usage:
   python -m lsfa_tpu_torch.experiments.lsfa_test \
       --cfg lsfa_tpu_torch/configs/lsfa_resnet101_vid.json \
       [--ckpt <dir>] [--ignore-cache] [--max-frames N] [--streams N] \
-      [--thresh T] [--device cpu]
+      [--thresh T] [--vis N] [--device cpu]
 
 It loads TEST.test_epoch (0: the latest) from the checkpoint directory
 (``--ckpt``, else the train run's), builds one record per video of
 dataset.test_image_set, runs the loop of ``eval/driver.py`` the config
-calls for and prints mAP@0.5. Against the JAX launcher: a record's height
-and width come from its first frame's annotation (JAX reads them from
-the stream, or from the first JPEG with PIL); ``open_video`` is passed
-through to the loops (see ``eval/driver.py``); lockstep lanes
-(``--lanes``, ``--mesh``) are not carried, and ``--vis`` needs an image
-writer without PIL, which is not written yet.
+calls for and prints mAP@0.5. A video whose compressed stream is not on
+disk (when no ``open_video`` is given) is evaluated from its JPEG frames.
+``--vis N`` writes the first N frames that have detections and an image,
+annotated, to ``<out_dir>/vis/<global frame>.png``. Against the JAX
+launcher: a record's height and width come from its first frame's
+annotation (JAX reads them from the stream, or from the first JPEG with
+PIL); ``open_video`` and ``read_image`` are passed through to the loops
+(see ``eval/driver.py``) and ``--vis`` reads its frames with
+``read_image``; ``--vis`` writes PNG (``utils.vis.write_png``), where JAX
+writes JPEG; lockstep lanes (``--lanes``, ``--mesh``) are not carried.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from __future__ import annotations
 import argparse
 import logging
 import os
+
+import numpy as np
 
 
 def resolve_train_ckpt_dir(cfg, out_dir: str) -> str | None:
@@ -69,10 +75,8 @@ def run_test(cfg, ckpt_dir=None, ignore_cache=False, max_frames=None,
     None reading their JPEGs). model: evaluate this model (e.g. the one
     ``train_net`` just trained) in place of `load_model`'s. Detections are
     cached at ``<out_dir>/detections.pkl`` and read back from there unless
-    ignore_cache."""
-    if vis_frames:
-        raise NotImplementedError(
-            "--vis needs an image writer without PIL (ROADMAP Queue 1 item 7)")
+    ignore_cache. vis_frames: write that many annotated frames
+    (`write_vis`)."""
     from lsfa_tpu_torch.data.dataset import ImageNetVID
     from lsfa_tpu_torch.eval.driver import (
         eval_videos, eval_videos_rfcn, eval_videos_timeplex, evaluate_map)
@@ -91,12 +95,14 @@ def run_test(cfg, ckpt_dir=None, ignore_cache=False, max_frames=None,
     video_roidb = []
     for e in ds._index:
         first = ds._load_annotation({"path": e["path"], "frame_seg_id": 0})
+        video = ds.video_path(e)
         video_roidb.append({
             "vid_path": e["path"],
             "frame_seg_len": e.get("frame_seg_len", 1),
             "pattern": os.path.join(cfg.dataset.dataset_path, "Data", "VID", e["path"],
                                     "%06d.JPEG"),
-            "video_path": ds.video_path(e),
+            # without a stream on disk the loops read the video's JPEG frames
+            "video_path": video if open_video is not None or os.path.exists(video) else None,
             "height": first["height"],
             "width": first["width"],
         })
@@ -109,7 +115,44 @@ def run_test(cfg, ckpt_dir=None, ignore_cache=False, max_frames=None,
         dets = eval_videos_timeplex(model, cfg, video_roidb, streams=streams, **kw)
     else:
         dets = eval_videos(model, cfg, video_roidb, **kw)
+    if vis_frames:
+        write_vis(dets, video_roidb, os.path.join(out_dir, "vis"), vis_frames, read_image,
+                  logger)
     return evaluate_map(dets, ds, video_roidb, logger=logger)
+
+
+def write_vis(dets, video_roidb, vis_dir: str, max_frames: int, read_image=None,
+              logger=None) -> int:
+    """Write up to max_frames annotated frames to
+    ``<vis_dir>/<global frame index, 6 digits>.png``, in the roidb's frame
+    order: a frame is written where it has detections and its image
+    (``pattern % frame``, read with read_image, default the JPEG reader)
+    can be read. Returns the count."""
+    from lsfa_tpu_torch.data.loader import read_jpeg_bgr
+    from lsfa_tpu_torch.utils.vis import draw_detections, write_png
+
+    read_image = read_image or read_jpeg_bgr
+    os.makedirs(vis_dir, exist_ok=True)
+    gidx = written = 0
+    for rec in video_roidb:
+        for fid in range(rec["frame_seg_len"]):
+            if written >= max_frames:
+                break
+            if gidx in dets:
+                try:
+                    im = read_image(rec["pattern"] % fid)
+                except OSError:
+                    im = None
+                if im is not None:
+                    rgb = np.clip(np.asarray(im, np.float32)[:, :, ::-1], 0, 255)
+                    write_png(os.path.join(vis_dir, f"{gidx:06d}.png"),
+                              draw_detections(rgb, dets[gidx]))
+                    written += 1
+            gidx += 1
+        if written >= max_frames:
+            break
+    (logger.info if logger else print)(f"wrote {written} annotated frames to {vis_dir}")
+    return written
 
 
 def main(argv=None):
@@ -121,7 +164,7 @@ def main(argv=None):
     ap.add_argument("--streams", type=int, default=0,
                     help="time-multiplexed video streams through one detector")
     ap.add_argument("--vis", type=int, default=0, metavar="N",
-                    help="write the first N annotated frames (not ported)")
+                    help="write the first N annotated frames to <out_dir>/vis")
     ap.add_argument("--thresh", type=float, default=None,
                     help="detection score threshold override")
     ap.add_argument("--device", default=None, help="torch device (default: the card)")

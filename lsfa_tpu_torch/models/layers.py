@@ -1,8 +1,9 @@
 """Shared building blocks, NCHW inside the models.
 
-Every parameter is float32 (flax's param_dtype); a layer casts its input
-and weights to its compute `dtype` when it runs, as a flax layer with
-`dtype=bfloat16` does. BatchNorm computes in float32 (eps 2e-5) and
+Parameters are float32 (flax's param_dtype) unless the trainer stores
+them lower (``tpu.param_dtype``); a layer casts its input and weights to
+its compute `dtype` when it runs, as a flax layer with `dtype=bfloat16`
+does, and the BatchNorms read their scale and bias in float32. BatchNorm computes in float32 (eps 2e-5) and
 returns its compute dtype; `FrozenBN` always uses its running statistics,
 `BatchNorm` (the R-net's and the small-net fusion's) uses batch
 statistics in training mode.
@@ -139,8 +140,9 @@ class FrozenBN(nn.Module):
         self.register_buffer("running_var", torch.ones(features, device=device))
 
     def forward(self, x):
+        w = None if self.weight is None else self.weight.float()
         y = F.batch_norm(x.float(), self.running_mean, self.running_var,
-                         self.weight, self.bias, training=False, eps=BN_EPS)
+                         w, self.bias.float(), training=False, eps=BN_EPS)
         return y.to(self.dtype)
 
 
@@ -151,26 +153,31 @@ class BatchNorm(FrozenBN):
     variance over (N, H, W), the variance as E[x^2] - E[x]^2 clamped at 0,
     and moves the running statistics to 0.9 * running + 0.1 * batch; in
     eval mode it is a FrozenBN. The update is computed here, because
-    F.batch_norm would move running_var by the unbiased variance. Training
-    over more than one rank raises: the JAX step's statistics are the
-    global batch's, and a rank's own would silently differ."""
+    F.batch_norm would move running_var by the unbiased variance.
+
+    The batch is the global one, as in the JAX step over a mesh: the
+    per-channel sums of x and x^2 and the element count are summed over
+    the ranks of the process group in one all-reduce that carries the
+    gradient (``mesh.sum_over_ranks_with_grad``; the identity without a
+    group). Every rank calls every train-mode BatchNorm of the model once
+    per step, in the same order, forward and backward: no branch of the
+    model skips one on its data."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        if mesh.world_size() > 1:
-            raise NotImplementedError(
-                "train-mode BatchNorm (res_diff_bn, small_net_bn_before_fuse) over more than one "
-                "rank: its batch statistics would be each rank's, not the global batch's "
-                "(ROADMAP.md, Queue 1 item 3)")
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        c = xf.shape[1]
+        count = torch.full((1,), xf.numel() // c, dtype=torch.float32, device=xf.device)
+        sums = mesh.sum_over_ranks_with_grad(
+            torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)), count]))
+        mean = sums[:c] / sums[-1]
+        var = torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean, min=0.0)
         with torch.no_grad():
             self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
             self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
-        mul = torch.rsqrt(var + BN_EPS) * self.weight
-        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        mul = torch.rsqrt(var + BN_EPS) * self.weight.float()
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias.float()[:, None, None]
         return y.to(self.dtype)
 
 

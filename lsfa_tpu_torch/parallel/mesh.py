@@ -8,7 +8,8 @@ give the same semantics: every rank holds the whole model
 (`broadcast_parameters`), trains on its contiguous rows of the global
 batch (`shard_batch`, or a ``data.loader.TrainLoader`` built with the
 rank), normalizes its losses by counts over the global batch
-(`sum_over_ranks`, without gradient) and sums the gradients
+(`sum_over_ranks`, without gradient; the train-mode BatchNorm's moments
+through `sum_over_ranks_with_grad`) and sums the gradients
 (`all_reduce_gradients`) before the optimizer's step, so that every rank
 applies the one update the single-process step on the global batch gives.
 
@@ -99,6 +100,17 @@ def sum_over_ranks(t: torch.Tensor) -> torch.Tensor:
     out = t.detach().clone()
     dist.all_reduce(out)
     return out
+
+
+def sum_over_ranks_with_grad(t: torch.Tensor) -> torch.Tensor:
+    """`t` summed over the ranks, differentiably: the backward sums the
+    incoming gradients over the ranks too (`t` itself without a process
+    group). Every rank must make the same calls in the same order."""
+    if not active():
+        return t
+    import torch.distributed.nn.functional as dist_fn
+
+    return dist_fn.all_reduce(t)
 
 
 def all_reduce_gradients(model: torch.nn.Module):

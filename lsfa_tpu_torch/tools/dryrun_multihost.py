@@ -3,12 +3,13 @@
 Spawns `--nproc` processes (2 by default) on the CPU, joined by
 ``parallel.mesh.initialize_distributed`` (gloo, a free port of
 127.0.0.1). Each holds one image of the tiny LSFA's global batch (seeded
-synthetic batches) and runs 2 steps of ``train.driver.train_net``; then
-the tiny LSFA with a train-mode BatchNorm variant takes one step on each
-rank, which must raise NotImplementedError. In this process the same
-model takes the same 2 steps on the whole batch. Checks: the metrics of
-every step and the parameters after the last are identical across the
-ranks, and equal to the single-process run's within 1e-5 relative
+synthetic batches) and runs 2 steps of ``train.driver.train_net``, then
+the same with the train-mode BatchNorm variant (`res_diff_bn` and
+`small_net_bn_before_fuse`, whose batch statistics are the global
+batch's). In this process the same models take the same steps on the
+whole batch. Checks, for each model: the metrics of every step and the
+parameters and running statistics after the last are identical across
+the ranks, and equal to the single-process run's within 1e-5 relative
 (parameters: of max(1, |value|); a batch of N and N batches of one sum
 in other orders).
 
@@ -76,7 +77,23 @@ def train(model, cfg, n_images):
     return steps
 
 
-def worker(rank: int, world: int, port: int, out_dir: str):
+# the models each run trains: the plain tiny LSFA, and its train-mode
+# BatchNorm variant
+VARIANTS = {"plain": {}, "bn": {"res_diff_bn": True, "small_net_bn_before_fuse": True}}
+
+
+def train_variants(world: int, names) -> dict:
+    """{variant: (the metrics of each step, the state after the last)} of
+    the variants `names`."""
+    out = {}
+    for name in names:
+        cfg = tiny_config(**VARIANTS[name])
+        model = tiny_model(cfg)
+        out[name] = (train(model, cfg, world), model.state_dict())
+    return out
+
+
+def worker(rank: int, world: int, port: int, out_dir: str, names):
     import torch
 
     from lsfa_tpu_torch.parallel import mesh
@@ -84,18 +101,11 @@ def worker(rank: int, world: int, port: int, out_dir: str):
     torch.set_num_threads(2)
     mesh.initialize_distributed(f"127.0.0.1:{port}", world, rank, device="cpu")
     try:
-        cfg = tiny_config()
-        model = tiny_model(cfg)
-        steps = train(model, cfg, world)
-        bn_cfg = tiny_config(res_diff_bn=True, small_net_bn_before_fuse=True)
-        try:
-            train(tiny_model(bn_cfg), bn_cfg, world)
-            bn = "trained"
-        except NotImplementedError:
-            bn = "raised NotImplementedError"
-        torch.save({"rank": rank, "world_size": mesh.world_size(), "steps": steps,
+        runs = train_variants(world, names)
+        torch.save({"rank": rank, "world_size": mesh.world_size(),
                     "backend": torch.distributed.get_backend(),
-                    "state": model.state_dict(), "bn_variant": bn},
+                    "steps": {k: v[0] for k, v in runs.items()},
+                    "state": {k: v[1] for k, v in runs.items()}},
                    os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         torch.distributed.destroy_process_group()
@@ -112,43 +122,56 @@ def checksum(state) -> float:
                      if not k.endswith(("running_mean", "running_var"))))
 
 
-def run(nproc: int = 2):
-    """Spawn the ranks, run the single process, compare. Returns (report
-    dict, the ranks' saved results, the single process's (steps, state))."""
+def compare(ranks, single, name):
+    """(ranks identical, largest relative loss error, largest parameter
+    error) of variant `name` against the single process's (steps, state)."""
+    import torch
+
+    first = ranks[0]
+    steps, state = first["steps"][name], first["state"][name]
+    same = all(r["steps"][name] == steps and r["state"][name].keys() == state.keys()
+               and all(torch.equal(r["state"][name][k], v) for k, v in state.items())
+               for r in ranks[1:])
+    loss_err = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12)
+                   for g, w in zip(steps, single[0]) for k in w)
+    param_err = max(float(((state[k] - v).abs() / v.abs().clamp(min=1.0)).max())
+                    for k, v in single[1].items() if v.is_floating_point())
+    return same, loss_err, param_err
+
+
+def run(nproc: int = 2, names=tuple(VARIANTS)):
+    """Spawn the ranks, run the single process, compare, for the variants
+    `names`. Returns (report dict, the ranks' saved results, the single
+    process's {variant: (steps, state)})."""
     import torch
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory() as out_dir:
-        mp.spawn(worker, args=(nproc, free_port(), out_dir), nprocs=nproc, join=True)
+        mp.spawn(worker, args=(nproc, free_port(), out_dir, names), nprocs=nproc, join=True)
         ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=True)
                  for r in range(nproc)]
-    cfg = tiny_config()
-    model = tiny_model(cfg)
-    single = (train(model, cfg, nproc), model.state_dict())
-
+    single = train_variants(nproc, names)
     first = ranks[0]
-    same = all(r["steps"] == first["steps"] and r["state"].keys() == first["state"].keys()
-               and all(torch.equal(r["state"][k], v) for k, v in first["state"].items())
-               for r in ranks[1:])
-    loss_err = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12)
-                   for g, w in zip(first["steps"], single[0]) for k in w)
-    param_err = max(float(((first["state"][k] - v).abs() / v.abs().clamp(min=1.0)).max())
-                    for k, v in single[1].items() if v.is_floating_point())
-    report = {
-        "ok": bool(same and loss_err <= TOL and param_err <= TOL
-                   and len(first["steps"]) == STEPS
-                   and all(r["world_size"] == nproc for r in ranks)
-                   and all(r["bn_variant"] == "raised NotImplementedError" for r in ranks)),
-        "n_processes": nproc, "backend": first["backend"], "steps": STEPS,
-        "ranks_identical": same, "max_rel_err_losses": loss_err,
-        "max_rel_err_params": param_err,
+    report = {"n_processes": nproc, "backend": first["backend"], "steps": STEPS}
+    ok = all(r["world_size"] == nproc for r in ranks)
+    for name in names:
+        same, loss_err, param_err = compare(ranks, single[name], name)
+        ok = ok and same and loss_err <= TOL and param_err <= TOL and len(
+            first["steps"][name]) == STEPS
+        suffix = "" if name == "plain" else "_" + name
+        report.update({"ranks_identical" + suffix: same, "max_rel_err_losses" + suffix: loss_err,
+                       "max_rel_err_params" + suffix: param_err})
+    report.update({
+        "ok": bool(ok),
         "workers": [{"rank": r["rank"], "world_size": r["world_size"],
-                     "total_loss": [s["total_loss"] for s in r["steps"]],
-                     "param_checksum": checksum(r["state"]), "bn_variant": r["bn_variant"]}
+                     **{f"total_loss_{n}": [s["total_loss"] for s in r["steps"][n]]
+                        for n in names},
+                     **{f"param_checksum_{n}": checksum(r["state"][n]) for n in names}}
                     for r in ranks],
-        "single_process": {"total_loss": [s["total_loss"] for s in single[0]],
-                           "param_checksum": checksum(single[1])},
-    }
+        "single_process": {**{f"total_loss_{n}": [s["total_loss"] for s in single[n][0]]
+                              for n in names},
+                           **{f"param_checksum_{n}": checksum(single[n][1]) for n in names}},
+    })
     return report, ranks, single
 
 

@@ -26,10 +26,12 @@ def _path(path: str, epoch: int) -> str:
 
 def save_checkpoint(path: str, epoch: int, model, optimizer, scheduler, step: int,
                     rng_state):
-    """Write <path>/<epoch>.pt (written to a temporary name, then renamed)."""
+    """Write <path>/<epoch>.pt (written to a temporary name, then renamed).
+    optimizer and scheduler may be None (saved as None)."""
     os.makedirs(path, exist_ok=True)
     state = {"epoch": epoch, "step": step, "model": model.state_dict(),
-             "optimizer": optimizer.state_dict(), "scheduler": scheduler.state_dict(),
+             "optimizer": None if optimizer is None else optimizer.state_dict(),
+             "scheduler": None if scheduler is None else scheduler.state_dict(),
              "rng_state": rng_state}
     tmp = _path(path, epoch) + f".{os.getpid()}.tmp"
     torch.save(state, tmp)

@@ -5,7 +5,8 @@
 for an ``rfcn*`` symbol) with random weights from a seed, applies the
 warm starts the config names (the reference's MXNet ``.params`` files,
 the port's own checkpoints) and seeds the small-net trunk from the
-backbone. `train_net` runs the recipe (SGD with the warm-up multi-factor
+backbone, and stores the floating parameters in ``tpu.param_dtype``.
+`train_net` runs the recipe (SGD with the warm-up multi-factor
 schedule, per-epoch checkpoints, resume) over a `TrainLoader` of the
 roidb, or over given collated host batches (``synthetic_train_batches``),
 on one device or data parallel over the ranks of a process group.
@@ -49,11 +50,31 @@ def build_model(cfg, rng_seed: int = 0, device=None):
     (the card when None; raises without one unless device="cpu"), weights
     drawn from a generator seeded with rng_seed on that device. No warm
     start, no small-net seeding."""
-    if str(cfg.tpu.param_dtype) != "float32":
-        raise NotImplementedError("parameters are float32 in the port")
     device = resolve_device(device)
     model = (rfcn_from_config if is_rfcn(cfg) else lsfa_from_config)(cfg, device=device)
     init_params(model, torch.Generator(device=device).manual_seed(rng_seed))
+    return model
+
+
+def param_dtype(cfg) -> torch.dtype:
+    """The torch dtype of ``tpu.param_dtype`` (a name such as "float32" or
+    "bfloat16"; ValueError for a name torch has no floating dtype for)."""
+    name = str(getattr(cfg.tpu, "param_dtype", "float32"))
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype) or not dt.is_floating_point:
+        raise ValueError(f"tpu.param_dtype {name!r} names no floating torch dtype")
+    return dt
+
+
+def cast_parameters(model, dtype: torch.dtype):
+    """Store every floating parameter of `model` in `dtype`, in place.
+    Buffers (BatchNorm running statistics) stay float32, as the JAX
+    package's batch_stats do; every layer upcasts to its compute dtype
+    when it runs."""
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.is_floating_point() and p.dtype != dtype:
+                p.data = p.data.to(dtype)
     return model
 
 
@@ -76,7 +97,12 @@ def init_model(cfg, rng_seed: int = 0, device=None, logger=None):
        (e.g. the single-frame R-FCN's), whose shared detection stack
        (`SHARED_STACK`, BatchNorm statistics included) is merged by name
        and shape; ValueError when it shares no parameter;
-    3. the small-net trunk seeded from the (warm) backbone.
+    3. the small-net trunk seeded from the (warm) backbone;
+    4. the floating parameters stored in ``tpu.param_dtype`` (bfloat16
+       halves the weights' memory and checkpoints; the layers compute in
+       the compute dtype, as JAX upcasts). `train_net`'s SGD then updates
+       the parameters in that dtype in place, momentum included, as optax
+       does on a bfloat16 tree.
 
     The JAX package reads orbax directories where this one reads its own
     checkpoints."""
@@ -121,7 +147,7 @@ def init_model(cfg, rng_seed: int = 0, device=None, logger=None):
                     f"detector checkpoint {det} (epoch {epoch})")
 
     model.load_state_dict(seed_small_net(state))
-    return model
+    return cast_parameters(model, param_dtype(cfg))
 
 
 def load_train_roidb(cfg):

@@ -1,12 +1,15 @@
 """Throughput and phase timing; the counterparts of
 ``lsfa_tpu.utils.profiler``'s `Speedometer` (the train loop's log line,
-dff_rfcn/core/callback.py:19-51) and `PhaseTimer` (the evaluation loops'
-data/net/post breakdown)."""
+dff_rfcn/core/callback.py:19-51), `PhaseTimer` (the evaluation loops'
+data/net/post breakdown) and `trace` (a device profile of a region)."""
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
+
+import torch
 
 
 class Speedometer:
@@ -62,3 +65,20 @@ class PhaseTimer:
             return "no frames"
         parts = [f"{k} {v / self.count * 1e3:.1f}ms" for k, v in self.totals.items()]
         return f"per-tick: {' '.join(parts)} over {self.count} ticks"
+
+
+@contextlib.contextmanager
+def trace(log_dir: str = "lsfa_trace"):
+    """Profile the region with ``torch.profiler`` (the CPU, and CUDA where
+    a card is present) and export a Chrome trace (``trace.json``, open it
+    in chrome://tracing or Perfetto) into log_dir; the counterpart of JAX's
+    ``jax.profiler`` trace. Yields the profiler (``key_averages()``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

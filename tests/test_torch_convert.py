@@ -31,6 +31,20 @@ def to_numpy(variables):
     return jax.tree.map(np.asarray, dict(variables))
 
 
+@pytest.fixture(scope="module")
+def two_torch_threads():
+    """Two intra-op torch threads for a module's tests, then the caller's
+    count again: the workers of a parallel run share the host's cores, and
+    at torch's default (a thread per core) a worker's many small ops wait
+    on one another's spinning threads (an 80-step tiny train loop went from
+    17 s alone to 12 min in a 6-worker run). Alone, two threads run the
+    variant tests as fast as eight."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def perturb(variables, seed):
     """Redraw the leaves a fresh init leaves degenerate, so a wrong mapping
     shows: BN scale/bias/stats (identity at init), DCN offset convs and

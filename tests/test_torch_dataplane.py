@@ -275,8 +275,9 @@ def test_eval_loader_matches_jax(clip, full_frames):
 def test_eval_loader_refuses_the_host_chain(clip, tmp_path):
     """Frames past the stream's end go through read_image (the JPEG
     reader by default) and the host image chain, in the stream's wire
-    format, as JAX's do; a record without a stream still raises, where JAX
-    would read every frame's JPEG."""
+    format, as JAX's do; so does every frame of a record without a stream
+    (JPEG frames), in BGR, bit for bit JAX's payloads; a missing JPEG
+    raises."""
     from PIL import Image
 
     cfg, jcfg = configs()
@@ -293,9 +294,19 @@ def test_eval_loader_refuses_the_host_chain(clip, tmp_path):
         for g, w in zip(got, want):
             items_equal(g, w)
         assert got[-1]["data"].shape == fmt and not got[-1]["motion_vector"].any()
-    bare = [{"vid_path": "b", "frame_seg_len": 3, "pattern": "/nonexistent/%06d.JPEG"}]
-    with pytest.raises(NotImplementedError, match="no compressed stream"):
-        next(iter(loader.EvalLoader(bare, cfg, bucket_hw=BUCKET)))
+    jpegs = str(tmp_path / "jpeg_%06d.JPEG")
+    for fid in range(14):
+        Image.fromarray(rng.integers(0, 256, (90, 120, 3), dtype=np.uint8)).save(jpegs % fid)
+    bare = [{"vid_path": "b", "frame_seg_len": 14, "pattern": jpegs}]
+    got = list(loader.EvalLoader(bare, cfg, bucket_hw=BUCKET))
+    want = list(jax_loader.EvalLoader(bare, jcfg, bucket_hw=BUCKET))
+    assert [i["flag"] for i in got] == [0] + [2] * 11 + [1, 2]
+    for g, w in zip(got, want):
+        items_equal(g, w)
+    assert got[0]["data"].shape == (1, 64, 112, 3) and not got[5]["motion_vector"].any()
+    missing = [{"vid_path": "c", "frame_seg_len": 3, "pattern": "/nonexistent/%06d.JPEG"}]
+    with pytest.raises(FileNotFoundError):
+        next(iter(loader.EvalLoader(missing, cfg, bucket_hw=BUCKET)))
 
 
 def synthetic(cfg, **kw):

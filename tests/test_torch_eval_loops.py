@@ -51,6 +51,9 @@ from lsfa_tpu_torch.eval.tester import StreamingDetector
 from lsfa_tpu_torch.models.lsfa import lsfa_from_config
 from tests.test_torch_convert import perturb, to_numpy
 from tests.test_torch_train_step import NO_ALGSIMP
+from tests.test_torch_convert import two_torch_threads  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("two_torch_threads")
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 LSFA_CONFIG = os.path.join(ROOT, "configs", "lsfa_tiny_smoke.yaml")
@@ -346,10 +349,16 @@ def test_gop_eval_reason_and_buckets(roidb, lsfa, monkeypatch):
         got = driver._gop_eval_reason(r, c)
         assert got == jax_driver._gop_eval_reason(r, jc)
         assert got is None if reason is None else got.startswith(reason)
-    assert driver._gop_eval_reason({"frame_seg_len": 36}, cfg, opened=True) is None
-    assert driver._gop_eval_reason({"frame_seg_len": 36}, off_schedule, opened=True).startswith(
+    opened = {"frame_seg_len": 36, "video_path": "any"}
+    assert driver._gop_eval_reason(opened, cfg, opened=True) is None
+    assert driver._gop_eval_reason(opened, off_schedule, opened=True).startswith(
         "KEY_FRAME_INTERVAL")
-    assert driver._gop_eval_reason({"frame_seg_len": 3}, cfg, opened=True).startswith("video shorter")
+    assert driver._gop_eval_reason({**opened, "frame_seg_len": 3}, cfg,
+                                   opened=True).startswith("video shorter")
+    # a record of JPEG frames takes the per-frame path, whatever opens streams
+    jpeg = {"frame_seg_len": 36, "pattern": "%06d.JPEG"}
+    assert driver._gop_eval_reason(jpeg, cfg, opened=True) == jax_driver._gop_eval_reason(
+        jpeg, jcfg) == "no compressed stream on disk"
     monkeypatch.setattr(driver, "prepared_available", lambda: False)
     assert driver._gop_eval_reason(rec, cfg) == "native prepared-decode plane not built"
     assert driver._gop_eval_reason(rec, cfg, opened=True) is None
@@ -362,7 +371,13 @@ def test_gop_eval_reason_and_buckets(roidb, lsfa, monkeypatch):
     assert got == jax_driver.group_videos_by_bucket(recs, jcfg)
     assert got == {(64, 112): [rec, unsized], (112, 64): [portrait]}
     with pytest.raises(ValueError, match="no height and width"):
+        driver.group_videos_by_bucket([{"vid_path": "x"}], cfg)
+    with pytest.raises(FileNotFoundError):
         driver.group_videos_by_bucket([{"vid_path": "x", "pattern": "/nonexistent/%06d.JPEG"}], cfg)
+    # a record of JPEG frames without a size is sized from its first image
+    tall = {"vid_path": "t", "pattern": "tall_%06d.JPEG"}
+    got = driver.group_videos_by_bucket([tall], cfg, read_image=lambda p: np.zeros((128, 96, 3)))
+    assert got == {(112, 64): [tall]}
 
 
 def test_a_fallen_back_video_runs_frame_by_frame(roidb, lsfa, port_lsfa_dets):
@@ -375,3 +390,34 @@ def test_a_fallen_back_video_runs_frame_by_frame(roidb, lsfa, port_lsfa_dets):
     for k in got:
         np.testing.assert_array_equal(got[k]["labels"], port_lsfa_dets[k]["labels"])
         np.testing.assert_allclose(got[k]["scores"], port_lsfa_dets[k]["scores"], rtol=0, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def jpeg_record(tmp_path_factory):
+    """A video of 14 JPEG frames (128x96, written by PIL from a clip that
+    ``data.synth.render_video`` draws) and no compressed stream."""
+    from PIL import Image
+
+    from lsfa_tpu_torch.data.synth import render_video
+
+    d = tmp_path_factory.mktemp("jpeg_video")
+    frames, _ = render_video(128, 96, 14, np.random.default_rng(5))
+    for fid, f in enumerate(frames):
+        Image.fromarray(f[:, :, ::-1]).save(d / f"{fid:06d}.JPEG", quality=90)
+    return {"vid_path": "jpeg", "frame_seg_len": 14, "pattern": str(d / "%06d.JPEG"),
+            "height": 96, "width": 128}
+
+
+def test_eval_videos_over_jpeg_frames_matches_jax(roidb, lsfa, jpeg_record):
+    """A roidb that mixes a decoded clip (GOP windows, then its tail frame
+    by frame) and a record of JPEG frames (every frame through the host
+    chain, zero MV and residual, flag 0 then 2, 1 at frame 12): JAX's
+    detections."""
+    jcfg, jm, v, cfg, tm = lsfa
+    recs = [roidb[0][2], jpeg_record]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_driver, "StreamingDetector", ExactJaxStreamingDetector)
+        want = jax_driver.eval_videos(jm, v, jcfg, recs, logger=LOG)
+    got = driver.eval_videos(tm, cfg, recs, logger=LOG)
+    assert sorted(got) == list(range(30 + 14))
+    assert_detections_close(got, want)

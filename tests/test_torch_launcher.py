@@ -37,6 +37,9 @@ from lsfa_tpu_torch.train.checkpoint import load_checkpoint
 from lsfa_tpu_torch.train.driver import build_model, is_rfcn, train_net
 from lsfa_tpu_torch.train.import_mxnet import export_mxnet_lsfa
 from lsfa_tpu_torch.utils.mxnet_io import save_params
+from tests.test_torch_convert import two_torch_threads  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("two_torch_threads")
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 TWINS = ("lsfa_resnet101_vid", "rfcn_resnet101_vid", "lsfa_tiny_smoke", "rfcn_tiny_smoke")
@@ -195,7 +198,7 @@ def test_run_test_equals_the_loop_and_evaluate_map(name, streams, checkpoints, v
 
 def test_launcher_without_checkpoint_and_its_options(checkpoints, vid_tree, tmp_path):
     """No --ckpt and no train run: the random init, said so; the train
-    run's directory is found; --vis raises naming the roadmap item."""
+    run's directory is found."""
     cfg_path, ckpt, _ = checkpoints["rfcn_tiny_smoke"]
     cfg = tree_config(cfg_path, vid_tree, str(tmp_path / "out"))
     out_dir = os.path.join(cfg.output_path, cfg.symbol, cfg.dataset.test_image_set)
@@ -214,5 +217,38 @@ def test_launcher_without_checkpoint_and_its_options(checkpoints, vid_tree, tmp_
     assert lsfa_test.resolve_train_ckpt_dir(cfg, out_dir) == train_dir
     lsfa_test.load_model(cfg, None, out_dir, Log, "cpu")
     assert lines[-1] == "loaded checkpoint epoch 0"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        lsfa_test.main(["--cfg", cfg_path, "--vis", "2", "--device", "cpu"])
+
+
+def test_run_test_writes_annotated_frames(checkpoints, vid_tree, tmp_path):
+    """--vis 3: the first three frames with detections and an image, read
+    through read_image, annotated to <out_dir>/vis/<global frame>.png; a
+    frame whose image does not read is skipped, as JAX skips a missing
+    JPEG. The detections are the ones run_test scored (its cache)."""
+    from PIL import Image
+
+    from lsfa_tpu_torch.utils.vis import draw_detections
+
+    cfg_path, ckpt, _ = checkpoints["rfcn_tiny_smoke"]
+    cfg = tree_config(cfg_path, vid_tree, str(tmp_path / "out"))
+    cfg.TEST.SCORE_THRESH = 0.0
+    images = {}
+
+    def read_image(path):
+        if path.endswith("000001.JPEG"):
+            raise FileNotFoundError(path)
+        rng = np.random.default_rng(len(images))
+        return images.setdefault(path, rng.integers(0, 256, CONTENT + (3,)).astype(np.float32))
+
+    lsfa_test.run_test(cfg, ckpt_dir=ckpt, vis_frames=3, open_video=opener(vid_tree[1]),
+                       device="cpu", read_image=read_image)
+    out_dir = os.path.join(cfg.output_path, cfg.symbol, cfg.dataset.test_image_set)
+    with open(os.path.join(out_dir, "detections.pkl"), "rb") as f:
+        dets = pickle.load(f)
+    assert all(len(dets[i]["labels"]) for i in (0, 2, 3))
+    vis_dir = os.path.join(out_dir, "vis")
+    assert sorted(os.listdir(vis_dir)) == ["000000.png", "000002.png", "000003.png"]
+    pattern = os.path.join(vid_tree[1], "Data", "VID", "val", "vid_a", "%06d.JPEG")
+    for gidx in (0, 2, 3):
+        with Image.open(os.path.join(vis_dir, f"{gidx:06d}.png")) as im:
+            want = draw_detections(images[pattern % gidx][:, :, ::-1], dets[gidx])
+            np.testing.assert_array_equal(np.asarray(im), want)

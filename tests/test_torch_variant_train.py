@@ -13,6 +13,9 @@ import pytest
 
 from lsfa_tpu_torch.train.schedule import frozen_names
 from tests import test_torch_train_step as flagship
+from tests.test_torch_convert import two_torch_threads  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("two_torch_threads")
 
 NETWORK = {
     "fgfa": {"add_Nq_net": False, "add_Fgfa_net": True},

@@ -7,11 +7,13 @@ on the residual, un-normalized RPN deltas and BGR pixel means, at stride
 aggregation, the F-net ('conv#2', 'res'), the concat fuse, the four other
 small-net fuse modes, and the MobileNetV2 and Hobot trunks. Each variant
 runs forward_key, forward_cur and (with a FlowNet) forward_batch_gop in
-eval mode and forward_train in training mode. The non-local block, alone
-and inside the ResNet trunk, and flax's SAME padding, which the MobileNet
-trunks use, are held on their own. Tiny models, float32, 1e-4 relative
-and absolute (sums reassociated; the ResNet trunk's O(100) stages within
-1e-5 of their largest value)."""
+eval mode (forward_train in training mode is held in
+``tests/test_torch_variants_train.py``, a file of its own so that the two
+halves run side by side). The non-local block, alone and inside the ResNet
+trunk, and flax's SAME padding, which the MobileNet trunks use, are held
+on their own. Tiny models, float32, 1e-4 relative; absolute 1e-4, or 1e-5
+of the map's largest |value| where that is more (sums reassociated; see
+`assert_outputs_close`)."""
 
 import numpy as np
 import jax
@@ -25,8 +27,11 @@ from lsfa_tpu.models.resnet import NonLocalBlock as JaxNonLocalBlock
 from lsfa_tpu.models.resnet import ResNetBackbone as JaxResNetBackbone
 from lsfa_tpu_torch.convert import flax_to_torch
 from lsfa_tpu_torch.models.layers import Conv, SameConv
-from lsfa_tpu_torch.models.lsfa import LSFA
+from lsfa_tpu_torch.models.lsfa import LSFA, init_params
 from lsfa_tpu_torch.models.resnet import NonLocalBlock, ResNetBackbone
+from tests.test_torch_convert import two_torch_threads  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("two_torch_threads")
 
 H, W = 64, 96
 FH, FW = H // 16, W // 16
@@ -78,26 +83,51 @@ def variant_kwargs(name):
     return dict(BASE, **VARIANTS[name])
 
 
+def build_variant(name):
+    """(JAX module, perturbed flax variables, port model loaded with
+    strict=True) of a variant: the port's seeded init carried into the
+    variant's flax tree (``test_torch_train.torch_to_flax``, as
+    ``test_torch_train_step.step_both`` does), perturbed. JAX's own init
+    takes 15-25 s a variant on the CPU, op by op, and 4-15 s jitted."""
+    from tests.test_torch_train import flax_shapes, torch_to_flax
+
+    kw = variant_kwargs(name)
+    jm = JaxLSFA(dtype=jnp.float32, **kw)
+    tm = LSFA(**kw)
+    init_params(tm, torch.Generator().manual_seed(5))
+    v = perturb(torch_to_flax(tm.state_dict(), flax_shapes(jm, H, W)), 2)
+    tm.load_state_dict(flax_to_torch(v), strict=True)
+    return jm, v, tm
+
+
 @pytest.fixture(scope="module", params=sorted(VARIANTS))
 def variant(request):
-    """(name, JAX module, perturbed flax variables, port model loaded with
-    strict=True) of a variant."""
-    kw = variant_kwargs(request.param)
-    jm = JaxLSFA(dtype=jnp.float32, **kw)
-    d = jnp.zeros((1, H, W, 3))
-    v = jm.init(jax.random.PRNGKey(5), d, d, d, jnp.ones((1,)), jnp.ones((1,)),
-                jnp.zeros((1, FH, FW, 2)), jnp.zeros((1, FH, FW, 3)))
-    v = perturb(to_numpy(v), 2)
-    tm = LSFA(**kw)
-    tm.load_state_dict(flax_to_torch(v), strict=True)
-    return request.param, jm, v, tm
+    """(name, JAX module, perturbed flax variables, port model) of a
+    variant."""
+    return (request.param,) + build_variant(request.param)
+
+
+def map_atol(want) -> float:
+    """The absolute tolerance of an output map: 1e-4, or 1e-5 of its
+    largest |value| where that is more. The evidence, from float64
+    (``python -m tests.test_torch_variants_train``, every variant's
+    forward_key, forward_cur, forward_batch_gop and forward_train): JAX's
+    float32 maps lie within 4.2e-6 of float64 relative to each map's
+    largest |value|, the port's within 3.8e-6, and port against JAX
+    within 5.9e-6. On a map the port is 0.7-3.6x as far from float64 as
+    JAX; where it is further, torch's CPU convolution sums in another
+    order than XLA:CPU's: one float32 3x3 convolution of 512 channels is
+    5.3x further from float64 in torch than in XLA on the same inputs
+    (1.62e-6 against 3.03e-7), no port code intervening. Maps reach
+    O(100) (key_feat), where a bare 1e-4 is a few float32 ulps."""
+    return max(TOL["atol"], 1e-5 * float(np.abs(np.asarray(want)).max()))
 
 
 def assert_outputs_close(got, want):
     assert sorted(got) == sorted(want)
     for k in want:
         np.testing.assert_allclose(got[k].detach().numpy(), np.asarray(want[k]), err_msg=k,
-                                   **TOL)
+                                   rtol=TOL["rtol"], atol=map_atol(want[k]))
 
 
 def test_variant_matches_jax(variant):
@@ -126,37 +156,6 @@ def test_variant_matches_jax(variant):
             want_b = jm.apply(v, jnp.asarray(key), jnp.asarray(others),
                               method=jm.forward_batch_gop)
             assert_outputs_close(tm.forward_batch_gop(t(key), t(others)), want_b)
-
-
-def test_variant_forward_train_matches_jax(variant):
-    """forward_train in training mode on a batch of two (the long-term
-    aggregation and the fresh-feature select), with the train-mode
-    BatchNorms' updated running statistics where there are some."""
-    name, jm, v, tm = variant
-    rng = np.random.default_rng(11)
-    imgs = [rng.integers(0, 256, (2, H, W, 3)).astype(np.float32) for _ in range(3)]
-    eq, eq_old = np.zeros(2, np.float32), np.asarray([0.0, 1.0], np.float32)
-    mv = rng.normal(0, 1.5, (2, FH, FW, 2)).astype(np.float32)
-    res = rng.normal(0, 20, (2, FH, FW, 3)).astype(np.float32)
-    args = (*imgs, eq, eq_old, mv, res)
-    want, mutated = jm.apply(v, *(jnp.asarray(a) for a in args), method=jm.forward_train,
-                             mutable=["batch_stats"])
-    before = {k: x.clone() for k, x in tm.state_dict().items()}
-    tm.train()
-    try:
-        with torch.no_grad():
-            got = tm.forward_train(*(t(a) for a in args))
-        assert_outputs_close(got, want)
-        stats = flax_to_torch(to_numpy({"batch_stats": mutated["batch_stats"]}))
-        moved = [k for k, x in tm.state_dict().items() if not torch.equal(x, before[k])]
-        assert all(k.endswith(("running_mean", "running_var")) for k in moved), moved
-        for k in moved:
-            np.testing.assert_allclose(tm.state_dict()[k].numpy(), stats[k].numpy(), err_msg=k,
-                                       **TOL)
-        assert bool(moved) == (name in ("stride8_options", "small_bn_scale"))
-    finally:
-        tm.load_state_dict(before)
-        tm.eval()
 
 
 @pytest.mark.parametrize("case", ["block", "block_compress", "backbone"])
