@@ -175,8 +175,8 @@ Phases, each printing one line before the last:
      LSFA, 80 steps) on the card returns 0 with AP[class 3] > 0.49; the
      loss at steps 0, 20, 40, 60 and 79, ms per step, the top-3 detections;
  30. FlowNet-S pretraining: tools.pretrain_flow.main at feat_dim 1024 and
-     batch 4 over 960x576 and 576x960 clips rendered in memory by
-     data.synth.render_video (no encoding), 40 steps: finite losses,
+     batch 4 over 960x576 and 576x960 clips of the hard profile rendered
+     in memory (RenderedSynthDataset, no encoding), 40 steps: finite losses,
      photo_first and photo_final, ms per step, peak memory; the
      checkpoint warm-starts the flagship through init_model's
      pretrained_flow with its FlowNet tensors bit-equal; a tiny step card
@@ -193,7 +193,28 @@ Phases, each printing one line before the last:
  33. JPEG-frame evaluation: eval_videos over a record with a pattern and
      no video_path, 14 frames of 720x1280 from a seeded read_image: the
      per-frame path, zero MV and residual grids, 2 launches per frame,
-     frames/s.
+     frames/s;
+ 34. the synthetic ablation ladder's two card rungs at the flagship recipe
+     (bf16, 960x576 and 576x960, hard profile) through
+     tools.train_synth_full.main over clips rendered in memory
+     (RenderedSynthDataset: the card cannot encode, so no codec MVs or
+     residuals): the rfcn rung (R-FCN ResNet-101 with DCN) 30 steps over 4
+     clips of 36 frames with its evaluation over 2 val clips, then the
+     oracle rung warm-started from its checkpoint (its detection stack
+     bit-equal to the checkpoint's after init_model), then
+     tools.eval_rung.main for each rung over 2 fresh clips and
+     render_ablation: finite
+     metrics on every logged step, JAX's report keys, a non-key sample's
+     MVs nonzero (the oracle flow on the fast path), the kernel's masks
+     equal to the plain version's on the last train step's and the first
+     evaluation's RPN inputs, launches from the schedule (1 per step, 2 per
+     R-FCN frame, 4 per GOP); steps/s, loader-wait share, ms per step with
+     the batch ready, peak memory, eval frames/s, mAP;
+ 35. the entry hooks: lsfa_tpu_torch.entry.entry()'s fn(*args) equal to
+     the flagship's forward_key on the same inputs bit for bit, its ms per
+     call.
+`python3 chip_smoke.py --ladder STEPS --out DIR` runs phase 34 alone with
+a real step budget (`long_ladder`).
 Then the script's seconds, one JSON line for the kernels and, last, the
 result line. Any failed phase exits non-zero before the result line is
 printed.
@@ -201,6 +222,8 @@ printed.
 
 import contextlib
 import json
+import logging
+import re
 import statistics
 import subprocess
 import sys
@@ -2377,31 +2400,6 @@ def overfit_phase(nms_cuda):
     return launches
 
 
-class RenderedVideos:
-    """open_video for tools.pretrain_flow: the clip of each path rendered
-    in memory by data.synth.render_video (seeded by the path's index; no
-    encoding), at the size the dataset gives that index."""
-
-    def __init__(self, sizes, n_frames):
-        self.sizes, self.n_frames = sizes, n_frames
-
-    def __call__(self, path):
-        from lsfa_tpu_torch.data.synth import render_video
-
-        vi = int(Path(path).stem.rsplit("_", 1)[1])
-        frames, _ = render_video(*self.sizes[vi % len(self.sizes)], self.n_frames,
-                                 np.random.default_rng(vi))
-
-        class Reader:
-            def get_num_frames(self):
-                return len(frames)
-
-            def load(self, gop, pos, representation):
-                return frames[gop * GOP + pos]
-
-        return Reader()
-
-
 def pretrain_flow_phase(dev, nms_cuda, tmp):
     """Phase 30: FlowNet-S pretraining at full width, its checkpoint as
     the flagship's warm start, and a tiny step card against CPU."""
@@ -2416,7 +2414,10 @@ def pretrain_flow_phase(dev, nms_cuda, tmp):
     out = tmp / "flow_ckpt"
     steps, n_videos, n_frames = 40, 2, 13           # offsets reach 12 frames
     t0 = time.perf_counter()
-    opener = RenderedVideos(pretrain_flow.SIZES, n_frames)
+    clips = RenderedSynthDataset()
+    clips(str(tmp / "flow"), n_videos=n_videos, n_frames=n_frames, sizes=pretrain_flow.SIZES,
+          profile="hard")
+    opener = clips.train_reader
     report = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2628,6 +2629,419 @@ def jpeg_eval_phase(dev, model, cfg, nms_cuda):
           f"flags 0, 2 x 11, 1, 2, zero MV and residual grids, {len(dets)} finite records, "
           f"{launches} kernel launches (2 per frame); {n / wall:.2f} frames/s with the host "
           f"chain")
+    return launches
+
+
+class RenderedSynthDataset:
+    """data.synth.make_synth_vid_dataset's signature and returns, the clips
+    rendered in memory and never encoded (nothing on the card's machine
+    encodes): the same generator parameters and tag, video paths, boxes,
+    classes and oracle states, the frames kept by path (`clips`). A second
+    call with the same arguments returns the same clips, as the dataset's
+    cache does. `train_reader` and `prepared` open them for the training
+    feed and the evaluation loops. The clips have no codec MVs or
+    residuals: their MVs are zero, their residuals zero."""
+
+    def __init__(self):
+        self.clips = {}                  # video path -> (N, H, W, 3) uint8 BGR frames
+        self.sets = {}                   # (out_dir, tag) -> (meta, oracle states)
+
+    def __call__(self, out_dir, n_videos=8, n_frames=60, seed=0, sizes=((960, 576), (576, 960)),
+                 gop_size=12, min_objects=1, max_objects=3, split="train", profile="easy",
+                 oracle=False, **knobs):
+        import os
+
+        from lsfa_tpu_torch.data.synth import _gen_params, render_video, synth_records
+
+        params, _, min_objects, max_objects, tag = _gen_params(
+            n_videos, n_frames, seed, sizes, gop_size, min_objects, max_objects, profile, split,
+            knobs)
+        if (out_dir, tag) not in self.sets:
+            rng = np.random.default_rng(seed)
+            meta, states = [], []
+            for vi in range(n_videos):
+                w, h = sizes[vi % len(sizes)]
+                state: dict = {}
+                frames, annos = render_video(w, h, n_frames, rng, min_objects, max_objects,
+                                             record_state=state, **params)
+                path = os.path.join(out_dir, f"{tag}_{vi:03d}.mp4")
+                self.clips[path] = frames
+                meta.append({"video_path": path, "w": w, "h": h, "annos": annos})
+                states.append(state)
+            self.sets[(out_dir, tag)] = meta, states
+        meta, states = self.sets[(out_dir, tag)]
+        return synth_records(meta, states if oracle else None, out_dir, tag, n_frames)
+
+    def train_reader(self, path):
+        """The training feed's reader of a clip (`open_video` of
+        train_net), with the native decoder's `decode_train_sample`, so
+        that load_pair_sample takes its fast path, where the oracle flow
+        replaces the MV grid."""
+        return RenderedTrainReader(self.clips[path])
+
+    def prepared(self, video_path, cfg, bucket_hw, frames_mode=None, wire_fmt=None, oracle=None):
+        """The evaluation loops' opener (PreparedVideo's signature)."""
+        return RenderedPreparedVideo(self.clips[video_path], cfg, bucket_hw, frames_mode, oracle)
+
+
+class RenderedTrainReader:
+    """A video reader of frames in memory (get_num_frames, load) with the
+    native decoder's decode_train_sample, computed by the host chain
+    (data.image.resize, pad_to_bucket) with zero MV and residual."""
+
+    def __init__(self, frames):
+        self.frames = frames
+
+    def get_num_frames(self):
+        return len(self.frames)
+
+    def load(self, gop, pos, representation):
+        frame = self.frames[gop * GOP + pos]
+        if representation == 0:
+            return frame
+        return np.zeros(frame.shape[:2] + (2 if representation == 1 else 3,), np.int32)
+
+    def decode_train_sample(self, cur_id, bucket_hw, target_size, max_size, pixel_means_bgr,
+                            pixel_scale=1.0, stride=16, legacy_swap=False, flip=False):
+        """(data, ref, old (bh, bw, 3) uint8 resized and padded, flipped
+        when `flip`; mv (fh, fw, 2) and res (fh, fw, 3) float32; im_info;
+        the frame's position in its GOP), as the native call returns them:
+        ref is the GOP's key frame, old the previous GOP's."""
+        from lsfa_tpu_torch.data.image import pad_to_bucket, resize
+        from lsfa_tpu_torch.data.loader import zero_residual_grid
+
+        pos = cur_id % GOP
+        key = cur_id - pos
+        resized = {}
+        for fid in (cur_id, key, max(key - GOP, 0)):
+            if fid not in resized:
+                im = self.frames[fid].astype(np.float32)
+                im_r, scale = resize(im[:, ::-1] if flip else im, target_size, max_size)
+                resized[fid] = pad_to_bucket(np.clip(np.round(im_r), 0, 255).astype(np.uint8)[None],
+                                             bucket_hw)[0], im_r.shape[:2], scale
+        data, (h, w), scale = resized[cur_id]
+        info = np.asarray([h, w, scale], np.float32)
+        fb = (bucket_hw[0] // stride, bucket_hw[1] // stride)
+        return (data, resized[key][0], resized[max(key - GOP, 0)][0],
+                np.zeros(fb + (2,), np.float32),
+                zero_residual_grid(fb + (3,), info, pixel_means_bgr, pixel_scale, stride,
+                                   legacy_swap=legacy_swap),
+                info, pos)
+
+
+class RenderedPreparedVideo:
+    """PreparedVideo's surface (num_frames, wire_format, gop, frame) over
+    frames in memory: each frame through the host chain
+    (data.loader.host_payload, BGR), zero MV and residual grids; under
+    `oracle` (an oracle state) the generator's flow replaces each GOP's MV
+    grids (data.oracle_flow.substitute_gop_mv), as PreparedVideo does. In
+    the key-only mode the non-key frames' full-size slots stay zero."""
+
+    wire_format = "bgr8"
+
+    def __init__(self, frames, cfg, bucket_hw, frames_mode=None, oracle=None):
+        self.frames, self.cfg, self.bucket_hw = frames, cfg, tuple(bucket_hw)
+        self.num_frames = len(frames)
+        if frames_mode is None:
+            frames_mode = 1 if cfg.TEST.KEY_FRAME_INTERVAL % GOP == 0 else 0
+        self.key_only = frames_mode == 1
+        self.oracle = oracle
+        self._gop, self._cache = -1, None
+
+    def gop(self, gop_idx):
+        if gop_idx != self._gop:
+            self._cache, self._gop = self._load_gop(gop_idx), gop_idx
+        return self._cache
+
+    def frame(self, fid):
+        frames, smalls, mv, res, info = self.gop(fid // GOP)
+        pos = fid % GOP
+        return (frames[pos:pos + 1], smalls[pos:pos + 1], mv[pos:pos + 1], res[pos:pos + 1],
+                info[None])
+
+    def _load_gop(self, gop_idx):
+        from lsfa_tpu_torch.data.loader import host_payload
+        from lsfa_tpu_torch.data.oracle_flow import substitute_gop_mv
+
+        first = gop_idx * GOP
+        parts = [host_payload(self.frames[f].astype(np.float32), self.cfg, self.bucket_hw)
+                 for f in range(first, min(first + GOP, self.num_frames))]
+        frames, smalls, _, mv, res = (np.concatenate(p) for p in zip(*parts))
+        info = parts[0][2][0]
+        if self.key_only:
+            frames[1:] = 0
+        if self.oracle is not None:
+            mv = substitute_gop_mv(mv, self.oracle, first, float(info[2]),
+                                   self.cfg.network.RCNN_FEAT_STRIDE, self.frames.shape[1:3])
+        return frames, smalls, mv, res, info
+
+
+# the report keys of JAX's tools/train_synth_full.py and tools/eval_rung.py
+# (a CPU test holds them equal to those tools' reports)
+RUNG_REPORT_KEYS = ["rung", "profile", "steps", "train_wall_s", "steps_per_s", "eval_wall_s",
+                    "eval_frames", "n_detections", "mAP_synth_val", "ap_per_class", "platform"]
+XVAL_REPORT_KEYS = ["rung", "profile", "ckpt", "ckpt_epoch", "val_videos", "val_seed", "lt_off",
+                    "eval_wall_s", "eval_frames", "n_detections", "mAP_synth_val",
+                    "mAP_key_frames", "mAP_nonkey_frames", "mAP_by_offset", "ap_per_class",
+                    "platform"]
+FEED = re.compile(r"feed summary: (\d+) steps in ([\d.]+)s .* loader-wait ([\d.]+)s")
+
+
+class FeedSummary(logging.Handler):
+    """Keeps train_net's feed summaries (steps, wall s, loader-wait s)."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def emit(self, record):
+        m = FEED.search(record.getMessage())
+        if m:
+            self.seen.append((int(m[1]), float(m[2]), float(m[3])))
+
+
+def eval_schedule_launches(rung, video_roidb):
+    """The kernel's launches the evaluation loop of `rung` makes over
+    video_roidb: 2 per R-FCN frame; 4 per whole GOP and 2 per frame of a
+    partial-GOP tail in eval_videos."""
+    frames = [r["frame_seg_len"] for r in video_roidb]
+    if rung == "rfcn":
+        return 2 * sum(frames)
+    return sum(4 * (n // GOP) + 2 * (n % GOP) for n in frames)
+
+
+def ladder_rung(name, argv, tool, data, nms_cuda, dev, steps, **openers):
+    """One run of train_synth_full.main or eval_rung.main (`tool`, which
+    trains `steps` steps) over the rendered clips with the kernel
+    recorded: the input and mask of its launch number `steps - 1` (the
+    last train step's RPN) and `steps` (the evaluation's first RPN). Returns (tool's report dict, kernel launches,
+    recorded launches, feed summary, peak bytes, seconds)."""
+    import torch
+
+    kernel = nms_cuda.greedy_alive_cuda
+    seen = {}
+    keep = {steps: "eval", **({steps - 1: "train"} if steps else {})}
+
+    def recorded(boxes, valid, thresh, sweeps):
+        n = nms_cuda.LAUNCHES
+        alive, conv = kernel(boxes, valid, thresh, sweeps)
+        if n in keep:
+            seen[keep[n]] = (boxes.clone(), valid.clone(), thresh, sweeps, alive.clone())
+        return alive, conv
+
+    feed = FeedSummary()
+    log = logging.getLogger("lsfa_tpu_torch")
+    log.addHandler(feed)
+    report = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    nms_cuda.LAUNCHES = 0
+    nms_cuda.greedy_alive_cuda = recorded
+    t0 = time.perf_counter()
+    try:
+        rc = tool.main(argv, make_dataset=data, report=report, **openers)
+    finally:
+        nms_cuda.greedy_alive_cuda = kernel
+        log.removeHandler(feed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"{name}: returned {rc}")
+    return report, nms_cuda.LAUNCHES, seen, feed.seen, torch.cuda.max_memory_allocated(dev), wall
+
+
+def recorded_masks_equal(name, seen, greedy_alive):
+    """The kernel's recorded masks against the plain version's on the
+    same inputs. Returns the largest difference."""
+    err = 0.0
+    for kind, (boxes, valid, thresh, sweeps, alive) in seen.items():
+        want = greedy_alive(boxes, valid, thresh, sweeps)
+        err = max(err, float((alive.int() - want.int()).abs().max()))
+        check(bool((alive == want).all()),
+              f"{name}: kernel != plain on the {kind} RPN input {tuple(boxes.shape)}")
+    return err
+
+
+LADDER_SMOKE = {"steps": 30, "videos": 4, "frames": 36, "val_videos": 2, "xval_videos": 2}
+
+
+def ladder_phase(dev, nms_cuda, greedy_alive, tmp, art=None, steps=30, videos=4, frames=36,
+                 val_videos=2, xval_videos=2):
+    """Phase 34: the synthetic ablation ladder's two rungs the card can run
+    at the flagship recipe, through the port's tools over clips rendered
+    in memory (RenderedSynthDataset): the rfcn rung (R-FCN ResNet-101 with
+    DCN) from seeded weights, then the oracle rung warm-started from its
+    checkpoint (--init-from), each trained `steps` steps over `videos`
+    videos of `frames` frames (960x576 and 576x960, hard profile) and
+    scored on `val_videos` val videos; eval_rung over `xval_videos` fresh
+    ones for each rung; render_ablation over the report directory `art`
+    (default: under tmp). Returns ({path: kernel launches}, max abs error of the masks,
+    {rung: measurements})."""
+    import torch
+
+    from lsfa_tpu_torch.data.loader import load_pair_sample
+    from lsfa_tpu_torch.tools import eval_rung, render_ablation, train_synth_full
+    from lsfa_tpu_torch.train.checkpoint import load_checkpoint
+    from lsfa_tpu_torch.train.driver import SHARED_STACK, init_model
+
+    data = RenderedSynthDataset()
+    art = Path(art) if art else tmp / "ablation"
+    art.mkdir(parents=True, exist_ok=True)
+    log_every = 1 if steps <= 100 else 10
+    common = ["--profile", "hard", "--steps", str(steps), "--videos", str(videos), "--frames",
+              str(frames), "--val-videos", str(val_videos), "--log-every", str(log_every),
+              "--data", str(tmp / "ladder_data")]
+    openers = {"open_video": data.train_reader, "open_eval_video": data.prepared}
+    launches, err, measured = {}, 0.0, {}
+    ckpts = {}
+    for rung in ("rfcn", "oracle"):
+        out = tmp / rung
+        argv = common + ["--rung", rung, "--out", str(out)]
+        if rung == "oracle":
+            argv += ["--init-from", str(ckpts["rfcn"])]
+            # the warm start: the rfcn checkpoint's detection stack, bit for bit
+            cfg, _ = train_synth_full.rung_cfg("oracle")
+            cfg.network.pretrained_detector = str(ckpts["rfcn"])
+            warm = init_model(cfg, 0, dev, logger=Lines()).state_dict()
+            src, _ = load_checkpoint(str(ckpts["rfcn"]))
+            shared = [k for k in src["model"] if k.split(".")[0] in SHARED_STACK and k in warm]
+            diff = [k for k in shared if not torch.equal(warm[k].cpu(), src["model"][k])]
+            check(shared and not diff,
+                  f"oracle warm start: {len(diff)} of {len(shared)} shared tensors differ from "
+                  f"the rfcn checkpoint's {diff[:3]}")
+            n_shared = len(shared)
+            del warm, src
+        report, n, seen, feed, peak, wall = ladder_rung(
+            f"ladder {rung}", argv, train_synth_full, data, nms_cuda, dev, steps=steps, **openers)
+        ckpts[rung] = out / "checkpoints"
+        rep = report["report"]
+        check(list(rep) == RUNG_REPORT_KEYS, f"ladder {rung}: report keys {list(rep)}")
+        check(json.loads((out / "report.json").read_text()) == json.loads(json.dumps(rep)),
+              f"ladder {rung}: report.json differs from the returned report")
+        curves = [json.loads(c) for c in report["curves"]]
+        check([c["step"] for c in curves] == list(range(0, steps, log_every))
+              and all(np.isfinite(v) for c in curves for v in c.values()),
+              f"ladder {rung}: {len(curves)} logged steps, finite: "
+              f"{all(np.isfinite(v) for c in curves for v in c.values())}")
+        want = steps + eval_schedule_launches(rung, report["val_roidb"])
+        check(n == want, f"ladder {rung}: {n} kernel launches, not {steps} steps + "
+                         f"{want - steps} from the evaluation's schedule")
+        check(set(seen) == {"train", "eval"}, f"ladder {rung}: recorded {sorted(seen)}")
+        err = max(err, recorded_masks_equal(f"ladder {rung}", seen, greedy_alive))
+        launches[f"ladder_{rung}"] = n
+        (art / f"report_{rung}.json").write_text((out / "report.json").read_text())
+        (art / f"curves_{rung}.jsonl").write_text((out / "curves.jsonl").read_text())
+        check(len(feed) == 1 and feed[0][0] == steps, f"ladder {rung}: feed summaries {feed}")
+        _, train_wall, wait = feed[0]
+        measured[rung] = m = {
+            "steps_per_s": steps / report["train_wall"], "loader_wait_share": wait / train_wall,
+            "ms_per_step_fed": (train_wall - wait) / steps * 1e3, "peak_gib": peak / 2**30,
+            "eval_frames_per_s": rep["eval_frames"] / report["eval_wall"],
+            "mAP": rep["mAP_synth_val"], "seconds": wall, "launches": n,
+            "first_loss": curves[0]["total_loss"], "last_loss": curves[-1]["total_loss"]}
+        print(f"ladder {rung}: train_synth_full.main(--rung {rung} --profile hard --steps {steps}"
+              f"{' --init-from <rfcn>' if rung == 'oracle' else ''}) over {videos} x {frames} "
+              f"rendered frames (960x576, 576x960) at the flagship recipe (bf16, "
+              f"{'R-FCN ResNet-101 with DCN' if rung == 'rfcn' else 'LSFA mv_only graph, oracle MVs'}"
+              f"): returned 0; total_loss {m['first_loss']:.4f} -> {m['last_loss']:.4f}, every "
+              f"logged step finite; {m['steps_per_s']:.3f} steps/s, loader wait "
+              f"{100 * m['loader_wait_share']:.1f}% of {train_wall:.1f} s, "
+              f"{m['ms_per_step_fed']:.1f} ms per step with the batch ready, peak "
+              f"{m['peak_gib']:.2f} GiB; eval over {val_videos} val videos: "
+              f"{rep['eval_frames']} frames at {m['eval_frames_per_s']:.2f} frames/s, mAP "
+              f"{rep['mAP_synth_val']:.4f}; {n} kernel launches ({steps} steps + "
+              f"{n - steps} from the evaluation's schedule), masks equal to the plain "
+              f"version's on the last step's and the first evaluation's RPN inputs; "
+              f"{wall:.1f} s with rendering"
+              + (f"; warm start: {n_shared} shared tensors bit-equal to the rfcn checkpoint's"
+                 if rung == "oracle" else ""))
+
+    # F5: a non-key sample of the oracle rung takes the analytic flow
+    cfg, _ = train_synth_full.rung_cfg("oracle")
+    records, _, _ = data(str(tmp / "ladder_data"), n_videos=videos, n_frames=frames, seed=0,
+                         sizes=train_synth_full.SIZES, split="train", profile="hard", oracle=True)
+    rec = next(r for r in records if r["frame_seg_id"] == 5 and r["width"] > r["height"])
+    sample = None
+    for seed in range(20):
+        sample = load_pair_sample(rec, cfg, np.random.default_rng(seed), bucket_hw=BUCKET,
+                                  open_video=data.train_reader)
+        if sample["eq_flag"] == 0.0:
+            break
+    moving = float(np.abs(sample["motion_vector"]).max())
+    check(sample["eq_flag"] == 0.0 and moving > 0,
+          f"oracle rung: a non-key sample's motion_vector is zero (eq_flag {sample['eq_flag']})")
+    print(f"ladder oracle: a non-key training sample (frame 5, the fast path of "
+          f"RenderedTrainReader) carries the generator's flow: |motion_vector| up to "
+          f"{moving:.2f} cells, where the rendered clip's own MVs are zero")
+
+    launches["ladder_xval"] = 0
+    for rung in ("rfcn", "oracle"):
+        report, n, seen, _, _, _ = ladder_rung(
+            f"ladder xval {rung}", ["--rung", rung, "--ckpt", str(ckpts[rung]), "--val-videos",
+                                    str(xval_videos), "--data", str(tmp / "ladder_data"),
+                                    "--out", str(art)],
+            eval_rung, data, nms_cuda, dev, steps=0, open_eval_video=data.prepared)
+        rep = report["report"]
+        check(list(rep) == XVAL_REPORT_KEYS, f"ladder xval {rung}: report keys {list(rep)}")
+        check(all(np.isfinite(rep[k]) for k in ("mAP_synth_val", "mAP_key_frames",
+                                                "mAP_nonkey_frames")), f"ladder xval {rep}")
+        want = eval_schedule_launches(rung, report["val_roidb"])
+        check(n == want, f"ladder xval {rung}: {n} kernel launches, not {want} from its schedule")
+        err = max(err, recorded_masks_equal(f"ladder xval {rung}", seen, greedy_alive))
+        launches["ladder_xval"] += n
+        measured[f"{rung}_xval"] = m = {
+            "mAP": rep["mAP_synth_val"], "mAP_key": rep["mAP_key_frames"],
+            "mAP_nonkey": rep["mAP_nonkey_frames"], "mAP_by_offset": rep["mAP_by_offset"],
+            "eval_frames_per_s": rep["eval_frames"] / report["eval_wall"]}
+        print(f"ladder xval: eval_rung.main(--rung {rung}) over {xval_videos} fresh val videos "
+              f"(seed 2000): {rep['eval_frames']} frames at {m['eval_frames_per_s']:.2f} "
+              f"frames/s, mAP {m['mAP']:.4f} (key {m['mAP_key']:.4f}, non-key "
+              f"{m['mAP_nonkey']:.4f}), by offset {m['mAP_by_offset']}; {n} kernel launches "
+              f"({'2 per frame' if rung == 'rfcn' else '4 per GOP'}), masks equal to the plain "
+              f"version's on its first RPN input")
+
+    render_ablation.main(["--dir", str(art)])
+    md = (art / "ABLATION.md").read_text()
+    check("oracle" in md and "rfcn" in md, "render_ablation: ABLATION.md lacks the rungs")
+    print(f"ladder: render_ablation wrote ABLATION.md ({len(md)} bytes) over "
+          f"{sorted(p.name for p in art.glob('report_*.json'))}")
+    return launches, err, measured
+
+
+def entry_phase(dev, nms_cuda):
+    """Phase 35: lsfa_tpu_torch.entry.entry() on the card: fn(*args)
+    equal to the flagship's forward_key on the same inputs bit for bit,
+    and its time. Returns kernel launches (forward_key runs no NMS)."""
+    import torch
+
+    from lsfa_tpu_torch import entry
+
+    torch.cuda.synchronize()
+    nms_cuda.LAUNCHES = 0
+    fn, args = entry.entry()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    launches = nms_cuda.LAUNCHES
+    _, model = entry._flagship(device=dev)
+    model.load_state_dict({k: args[0][k] for k in model.state_dict()})
+    with torch.no_grad():
+        want = model.eval().forward_key(*args[1:])
+    check(sorted(out) == sorted(want), f"entry: outputs {sorted(out)}")
+    differ = [k for k in want if not torch.equal(out[k], want[k])]
+    check(not differ, f"entry: fn(*args) differs from forward_key in {differ}")
+    check(all(bool(torch.isfinite(v).all()) for v in out.values()), "entry: non-finite outputs")
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    del model
+    print(f"entry: lsfa_tpu_torch.entry.entry() on {torch.cuda.get_device_name(0)}: fn(params, "
+          f"data, data_key_old, feat_key_old, is_first) through torch.func.functional_call at "
+          f"{tuple(args[1].shape[1:3])}, {len(args[0])} weight tensors: outputs "
+          f"{ {k: tuple(v.shape) for k, v in out.items()} } equal to forward_key's bit for "
+          f"bit; {statistics.median(times) * 1e3:.2f} ms per call (median of 10 after one "
+          f"warm-up, host clock to synchronize), {launches} kernel launches")
     return launches
 
 
@@ -2856,6 +3270,14 @@ def main():
           "torch.backends.cudnn.allow_tf32 was left changed by the package")
     print(f"phases 1-33: {time.perf_counter() - T0:.1f} s since the script started")
 
+    # 34-35: the synthetic ablation ladder's two card rungs, the entry hooks
+    with tempfile.TemporaryDirectory() as scratch:
+        ladder_launches, ladder_err, _ = ladder_phase(dev, nms_cuda, greedy_alive, Path(scratch),
+                                                      **LADDER_SMOKE)
+    entry_launches = entry_phase(dev, nms_cuda)
+    max_err = max(max_err, ladder_err)
+    print(f"phases 1-35: {time.perf_counter() - T0:.1f} s since the script started")
+
     # 27. launches and device time by torch.profiler, last: after a profiled
     # window the host's launches stay slower, which would bias phases 3-26
     rfcn_account(dev)
@@ -2895,7 +3317,7 @@ def main():
                      + sum(tt_launches.values()) + sum(mobile_launches.values())
                      + hobot_launches + gop_launches + sum(demo_launches.values())
                      + overfit_launches + bn_ar_launches + sum(bf16_launches.values())
-                     + jpeg_launches),
+                     + jpeg_launches + sum(ladder_launches.values()) + entry_launches),
         "max_abs_err": max_err,
         "ms": rpn["us"] / 1e3, "plain_ms": rpn["plain_us"] / 1e3,
         "bound_ms": rpn["bound_us"] / 1e3, "bound_by": rpn["bound_by"], "library_ms": None,
@@ -2906,12 +3328,59 @@ def main():
                              **tt_launches, **mobile_launches, "hobot_stream": hobot_launches,
                              "batch_gop": gop_launches, **demo_launches,
                              "overfit_smoke": overfit_launches, "bn_allreduce": bn_ar_launches,
-                             **bf16_launches, "jpeg_eval": jpeg_launches},
+                             **bf16_launches, "jpeg_eval": jpeg_launches, **ladder_launches,
+                             "entry": entry_launches},
         "shapes": shapes}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 
 
+def long_ladder(argv):
+    """The ladder's two card rungs with a real step budget, outside the
+    smoke run: phase 34 at the given sizes, its reports, curves and
+    ABLATION.md written to --out with the measurements (measured.json).
+
+    python3 chip_smoke.py --ladder STEPS --out DIR [--videos N] [--frames N]
+        [--val-videos N] [--xval-videos N]"""
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description="the ablation ladder's card rungs")
+    ap.add_argument("--ladder", type=int, required=True, help="train steps of each rung")
+    ap.add_argument("--out", required=True, help="report directory")
+    ap.add_argument("--videos", type=int, default=12)
+    ap.add_argument("--frames", type=int, default=72)
+    ap.add_argument("--val-videos", type=int, default=6)
+    ap.add_argument("--xval-videos", type=int, default=12)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs an NVIDIA card")
+    sys.path.insert(0, str(REPO))
+    from lsfa_tpu_torch.ops import nms_cuda
+    from lsfa_tpu_torch.ops.nms import greedy_alive
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi)
+    nms_cuda.build()
+    out = Path(args.out)
+    with tempfile.TemporaryDirectory() as scratch:
+        launches, err, measured = ladder_phase(
+            torch.device("cuda", 0), nms_cuda, greedy_alive, Path(scratch), art=out,
+            steps=args.ladder, videos=args.videos, frames=args.frames,
+            val_videos=args.val_videos, xval_videos=args.xval_videos)
+    summary = {"card": smi, "steps": args.ladder, "videos": args.videos, "frames": args.frames,
+               "val_videos": args.val_videos, "xval_videos": args.xval_videos,
+               "launches": launches, "max_abs_err": err, "measured": measured,
+               "seconds": time.perf_counter() - T0}
+    (out / "measured.json").write_text(json.dumps(summary, indent=1))
+    print(json.dumps(summary))
+
+
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) > 1:
+        long_ladder(sys.argv[1:])
+    else:
+        main()

@@ -127,7 +127,12 @@ def load_pair_sample(rec, cfg, rng: np.random.Generator, bucket_hw=None, open_vi
     whole sample comes from that one call at the bucket (the fast path);
     else the host chain of ``data/image.py`` runs. The two paths draw
     from `rng` in JAX's orders, which differ: the fast path the scale,
-    then the reference offset; the host chain the offset, then the scale."""
+    then the reference offset; the host chain the offset, then the scale.
+
+    Under network.oracle_mv, the generator's analytic flow (rec["oracle"])
+    replaces the MV grid on the fast path only. A video record with an
+    oracle state whose frame would take the host chain raises ValueError,
+    where JAX would train on the reader's own MVs without a word."""
     read_image = read_image or read_jpeg_bgr
     means = cfg.network.PIXEL_MEANS
     scale = cfg.network.PIXEL_SCALE
@@ -176,6 +181,14 @@ def load_pair_sample(rec, cfg, rng: np.random.Generator, bucket_hw=None, open_vi
                 "motion_vector": mv_t[None], "res_diff": res_t[None],
                 "im_info": np.asarray([info[0], info[1], im_scale], np.float32),
                 "gt_boxes": gt}
+
+    if (reader is not None and "oracle" in rec and getattr(cfg.network, "oracle_mv", False)
+            and rec["frame_seg_id"] < reader.get_num_frames()):
+        why = ("no bucket_hw was given" if hasattr(reader, "decode_train_sample")
+               else "its reader has no decode_train_sample")
+        raise ValueError(
+            f"network.oracle_mv: the oracle flow replaces the MVs only on the fast path, and "
+            f"{video} would take the host chain ({why}) and train on the reader's own MVs")
 
     if reader is not None:
         cur_id = rec["frame_seg_id"]
@@ -669,33 +682,6 @@ class EvalLoader:
         self.open_video = open_video or PreparedVideo
         self.read_image = read_image or read_jpeg_bgr
 
-    def _host_frame(self, path, wire_format):
-        """(data, small, im_info, mv, res) of one image through the host
-        chain, as the prepared plane would ship it with zero MV and
-        residual."""
-        cfg = self.cfg
-        target, max_size = cfg.SCALES[0]
-        bh, bw = self.bucket_hw
-        im = self.read_image(path)
-        im_r, im_scale = resize(im, target, max_size)
-        # raw BGR uint8 padded to the bucket (normalized on the device)
-        data = pad_to_bucket(np.clip(np.round(im_r), 0, 255).astype(np.uint8)[None],
-                             self.bucket_hw)
-        # the small net's input: the padded frame's block mean
-        f = small_pool_factor(cfg.network.small_net_stride)
-        small = np.clip(np.round(data.astype(np.float32).reshape(
-            1, bh // f, f, bw // f, f, 3).mean((2, 4))), 0, 255).astype(np.uint8)
-        if wire_format == "i420":           # one wire format per video
-            data, small = bgr_to_i420(data), bgr_to_i420(small)
-        h, w = im.shape[:2]
-        mv_t, res_t = transform_mv_res(
-            np.zeros((h, w, 2), np.float32), np.zeros((h, w, 3), np.float32), im_scale,
-            cfg.network.PIXEL_MEANS, cfg.network.PIXEL_SCALE,
-            legacy_swap=bool(getattr(cfg.network, "res_diff_legacy_swap", False)))
-        fb = (bh // 16, bw // 16)
-        info = np.asarray([[im_r.shape[0], im_r.shape[1], im_scale]], np.float32)
-        return data, small, info, pad_to_bucket(mv_t, fb), pad_to_bucket(res_t, fb)
-
     def __iter__(self):
         cfg = self.cfg
         for vid_idx, rec in enumerate(self.roidb):
@@ -718,8 +704,37 @@ class EvalLoader:
                 if prep is not None and fid < prep.num_frames:
                     data, small, mv, res, info = prep.frame(fid)
                 else:
-                    data, small, info, mv, res = self._host_frame(
-                        rec["pattern"] % fid, "bgr8" if prep is None else prep.wire_format)
+                    data, small, info, mv, res = host_payload(
+                        self.read_image(rec["pattern"] % fid), cfg, self.bucket_hw,
+                        "bgr8" if prep is None else prep.wire_format)
                 yield {"video_index": vid_idx, "frame_id": fid, "flag": flag,
                        "data": data, "small": small, "im_info": info,
                        "motion_vector": mv, "res_diff": res}
+
+
+def host_payload(im, cfg, bucket_hw, wire_format: str = "bgr8"):
+    """(data, small, im_info, mv, res) of one HxWx3 BGR image through the
+    host chain, as the prepared plane would ship the frame with zero MV
+    and residual: data (1, bh, bw, 3) raw BGR uint8 padded to the bucket
+    (I420 when wire_format is "i420"), small its block mean at
+    1/small_pool_factor, im_info (1, 3), mv (1, fh, fw, 2) and res
+    (1, fh, fw, 3) float32 grids."""
+    target, max_size = cfg.SCALES[0]
+    bh, bw = bucket_hw
+    im_r, im_scale = resize(im, target, max_size)
+    # raw BGR uint8 padded to the bucket (normalized on the device)
+    data = pad_to_bucket(np.clip(np.round(im_r), 0, 255).astype(np.uint8)[None], bucket_hw)
+    # the small net's input: the padded frame's block mean
+    f = small_pool_factor(cfg.network.small_net_stride)
+    small = np.clip(np.round(data.astype(np.float32).reshape(
+        1, bh // f, f, bw // f, f, 3).mean((2, 4))), 0, 255).astype(np.uint8)
+    if wire_format == "i420":               # one wire format per video
+        data, small = bgr_to_i420(data), bgr_to_i420(small)
+    h, w = im.shape[:2]
+    mv_t, res_t = transform_mv_res(
+        np.zeros((h, w, 2), np.float32), np.zeros((h, w, 3), np.float32), im_scale,
+        cfg.network.PIXEL_MEANS, cfg.network.PIXEL_SCALE,
+        legacy_swap=bool(getattr(cfg.network, "res_diff_legacy_swap", False)))
+    fb = (bh // 16, bw // 16)
+    info = np.asarray([[im_r.shape[0], im_r.shape[1], im_scale]], np.float32)
+    return data, small, info, pad_to_bucket(mv_t, fb), pad_to_bucket(res_t, fb)

@@ -430,6 +430,13 @@ def make_synth_vid_dataset(out_dir, n_videos=8, n_frames=60, seed=0,
         if not oracle:
             states = None
 
+    return synth_records(meta, states, out_dir, tag, n_frames)
+
+
+def synth_records(meta, states, out_dir, tag, n_frames):
+    """(frame_roidb, video_roidb, annotations) of the clips `meta` (one
+    {video_path, w, h, annos} per video) and their oracle `states` (None:
+    no "oracle" entries), as `make_synth_vid_dataset` returns them."""
     frame_roidb, video_roidb, annotations = [], [], {}
     gidx = 0
     for vi, m in enumerate(meta):

@@ -268,7 +268,7 @@ def train_net(cfg, roidb=None, ckpt_dir: str | None = None, logger=None,
             break
     wall = time.perf_counter() - t_start
     if steps_run and rank == 0:
-        logger.info(f"feed summary: {steps_run} steps in {wall:.1f}s "
-                    f"({steps_run / wall:.2f} steps/s), loader-wait {data_wait:.1f}s "
+        logger.info(f"feed summary: {steps_run} steps in {wall:.3f}s "
+                    f"({steps_run / wall:.2f} steps/s), loader-wait {data_wait:.3f}s "
                     f"({100 * data_wait / wall:.1f}% of wall)")
     return model

@@ -26,7 +26,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from chip_smoke import RenderedVideos
+from chip_smoke import RenderedSynthDataset
 from lsfa_tpu_torch.config import load_config
 from lsfa_tpu_torch.convert import flax_to_torch
 from lsfa_tpu_torch.data import coviar
@@ -39,6 +39,15 @@ pytestmark = pytest.mark.usefixtures("two_torch_threads")
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 TINY = os.path.join(ROOT, "lsfa_tpu_torch", "configs", "lsfa_tiny_smoke.json")
+
+
+def rendered_clips(data_dir):
+    """open_video over the two 24-frame 128x96 clips of the hard profile
+    that pretrain_flow's --cpu-smoke names under data_dir, rendered in
+    memory (chip_smoke.RenderedSynthDataset)."""
+    clips = RenderedSynthDataset()
+    clips(data_dir, n_videos=2, n_frames=24, sizes=((128, 96),), profile="hard")
+    return clips.train_reader
 
 
 def random_dets(rng, n, h, w):
@@ -224,7 +233,7 @@ def test_pretrain_flow_steps_match_jax():
         updates, o = tx.update(grads, o, p)
         return optax.apply_updates(p, updates), o, loss, photo
 
-    opener = RenderedVideos(((128, 96),), 24)
+    opener = rendered_clips("d")
     readers = [opener(p) for p in pretrain_flow.video_paths("d", 2, 24, ((128, 96),), "hard")]
     rng = np.random.default_rng(0)
     opt_state = tx.init(params)
@@ -261,7 +270,8 @@ def test_pretrain_flow_checkpoint_warm_starts_init_model(tmp_path, capsys):
     report = {}
     assert pretrain_flow.main(["--cpu-smoke", "--steps", "2", "--log-every", "1", "--out", out,
                                "--data", str(tmp_path / "data")],
-                              open_video=RenderedVideos(((128, 96),), 24), report=report) == 0
+                              open_video=rendered_clips(str(tmp_path / "data")),
+                              report=report) == 0
     assert [s for s, _, _ in report["logged"]] == [0, 1]
     assert all(np.isfinite(x) for _, a, b in report["logged"] for x in (a, b))
     with open(os.path.join(out, "flow_pretrain.json")) as f:

@@ -421,3 +421,32 @@ def test_eval_videos_over_jpeg_frames_matches_jax(roidb, lsfa, jpeg_record):
     got = driver.eval_videos(tm, cfg, recs, logger=LOG)
     assert sorted(got) == list(range(30 + 14))
     assert_detections_close(got, want)
+
+
+def test_eval_videos_rfcn_over_jpeg_frames_matches_jax(roidb, rfcn, jpeg_record):
+    """The single-frame R-FCN over a decoded clip and a record of JPEG
+    frames (every frame through the host chain at full resolution): JAX's
+    detections."""
+    jcfg, jm, v, cfg, tm = rfcn
+    recs = [roidb[0][2], jpeg_record]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_rfcn_tester, "RFCNDetector", ExactJaxRFCNDetector)
+        want = jax_driver.eval_videos_rfcn(jm, v, jcfg, recs, logger=LOG)
+    got = driver.eval_videos_rfcn(tm, cfg, recs, logger=LOG)
+    assert sorted(got) == list(range(30 + 14))
+    assert_detections_close(got, want)
+
+
+def test_eval_videos_timeplex_over_jpeg_frames_matches_jax(roidb, lsfa, jpeg_record):
+    """Two time-multiplexed streams over a decoded clip and a record of
+    JPEG frames (which takes the per-frame path after the streams): JAX's
+    timeplex detections, and the port's sequential loop's."""
+    jcfg, jm, v, cfg, tm = lsfa
+    recs = [roidb[0][2], jpeg_record]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_driver, "StreamingDetector", ExactJaxStreamingDetector)
+        want = jax_driver.eval_videos_timeplex(jm, v, jcfg, recs, streams=2, logger=LOG)
+    got = driver.eval_videos_timeplex(tm, cfg, recs, streams=2, logger=LOG)
+    assert sorted(got) == list(range(30 + 14))
+    assert_detections_close(got, want)
+    assert_detections_same(got, driver.eval_videos(tm, cfg, recs, logger=LOG))

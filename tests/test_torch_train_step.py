@@ -45,7 +45,7 @@ from lsfa_tpu_torch.config import load_config
 from lsfa_tpu_torch.convert import flax_to_torch
 from lsfa_tpu_torch.data.loader import batch_to_device, synthetic_train_batches
 from lsfa_tpu_torch.models.lsfa import init_params, lsfa_from_config
-from lsfa_tpu_torch.train.driver import init_model, train_net
+from lsfa_tpu_torch.train.driver import cast_parameters, init_model, train_net
 from lsfa_tpu_torch.train.schedule import frozen_names, make_optimizer
 from lsfa_tpu_torch.train.train_step import TrainSettings, draw_uniforms, make_train_step
 from tests.test_torch_convert import perturb
@@ -101,12 +101,14 @@ def stepped():
     return step_both(OVERRIDES)
 
 
-def step_both(overrides):
+def step_both(overrides, param_dtype=None):
     """One train step of the JAX package and one of the port on the tiny
     config with `overrides`, from the same weights, batch and draws.
     Returns JAX's metrics, gradients and updated parameters (as state-dict
-    entries), the port's metrics and gradients, its model after the step
-    and its state before it."""
+    entries, float32), the port's metrics and gradients, its model after
+    the step and its state before it. param_dtype ("bfloat16"): both
+    packages store the parameters in it, from the same float32 weights
+    rounded, as each package's `init_model` casts."""
     jcfg = jax_load_config(CONFIG, overrides=overrides)
     cfg = load_config(CONFIG, overrides=overrides)
     jm = jax_lsfa_from_config(jcfg)
@@ -120,6 +122,8 @@ def step_both(overrides):
         k = v["params"][name]["kernel"]
         v["params"][name]["kernel"] = hr.normal(0, 0.05, k.shape).astype(np.float32)
     tm.load_state_dict(flax_to_torch(v), strict=True)
+    if param_dtype is not None:
+        cast_parameters(tm, getattr(torch, param_dtype))
 
     batch = synthetic_train_batches(1, (H, W), seed=4, batch_images=2, max_gt=8,
                                     content_hw=(60, 90), max_boxes=5)[0]
@@ -132,7 +136,7 @@ def step_both(overrides):
     anchors = jnp.asarray(anchor_grid(FH, FW, settings.feat_stride,
                                       settings.anchor_ratios, settings.anchor_scales))
     jbatch = {k: jnp.asarray(a) for k, a in batch.items()}
-    params = jax.tree.map(jnp.asarray, v["params"])
+    params = jax.tree.map(lambda x: jnp.asarray(x, param_dtype or x.dtype), v["params"])
     stats = jax.tree.map(jnp.asarray, v["batch_stats"])
     opt = jax_make_optimizer(params, base_lr=jcfg.TRAIN.lr, lr_steps=[1000])
 
@@ -155,7 +159,7 @@ def step_both(overrides):
     optimizer, scheduler = make_optimizer(tm, base_lr=cfg.TRAIN.lr, lr_steps=[1000])
     step = make_train_step(tm, TrainSettings.from_config(cfg), optimizer, scheduler)
     metrics = step(batch_to_device(batch, "cpu"), draws)
-    numpy = lambda tree: jax.tree.map(np.asarray, tree)   # noqa: E731
+    numpy = lambda tree: jax.tree.map(lambda x: np.asarray(x, np.float32), tree)  # noqa: E731
     return dict(jmetrics={k: float(x) for k, x in jmetrics.items()},
                 jgrads=flax_to_torch({"params": numpy(grads)}),
                 jparams=flax_to_torch({"params": numpy(new_params)}),
