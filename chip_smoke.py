@@ -213,8 +213,27 @@ Phases, each printing one line before the last:
  35. the entry hooks: lsfa_tpu_torch.entry.entry()'s fn(*args) equal to
      the flagship's forward_key on the same inputs bit for bit, its ms per
      call.
+ 36. the measurement tools, each once through its main(argv) at few
+     trials (TOOLS_SMOKE): lsfa_tpu_torch.bench (the headline: e2e over
+     4 synthetic GOPs with per-GOP p50/p99 and the 3-stream timeplex
+     aggregate; --device-only; --latency), tools.profile_detection,
+     profile_breakdown, profile_train, bench_train (LSFA and R-FCN),
+     report_mfu, ab_interleaved and bench_decode (host-only: without the
+     native decoder it raises, naming the library): every JSON result
+     well formed (finite positive values, the card's name and power
+     limit), the kernel's launches equal to each tool's schedule (4 per
+     GOP, 2 per frame, 1 per train step, 2 per detection at pre_nms
+     6000), the bench loop's windows equal to process_prepared_window on
+     the same payloads, the kernel's masks equal to the plain version's
+     on the bench's key and non-key RPN inputs and on profile_detection's
+     N = 6000 input (the two-phase route: 2 kernels per call, its time
+     beside the bound), every report_mfu share <= 105% and its FLOP
+     counts at the tiny config equal to the CPU's, ab_interleaved's trial
+     order A, B, A, B. Its profiled part (the kernel's device time at
+     N = 6000, the profilers' --trace windows) runs after phase 27.
 `python3 chip_smoke.py --ladder STEPS --out DIR` runs phase 34 alone with
-a real step budget (`long_ladder`).
+a real step budget (`long_ladder`); `python3 chip_smoke.py --tools` runs
+phase 36 alone (`tools_only`).
 Then the script's seconds, one JSON line for the kernels and, last, the
 result line. Any failed phase exits non-zero before the result line is
 printed.
@@ -378,22 +397,7 @@ def kernel_cases(rng):
     ]
 
 
-# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3
-PEAK_F32 = 67e12
-PEAK_BYTES = 3.35e12
-FLOPS_PER_PAIR = 16     # two extents 8, intersection 3, union and clamp 3, divide 1, compare 1
 NOT_TRACED = "device time not measured: torch.profiler recorded no device event in 3 windows"
-
-
-def nms_bound_ms(b, n):
-    """The least time of the fixpoint on an H100: one IoU test per pair of
-    the strict upper triangle at FLOPS_PER_PAIR float32 operations, against
-    boxes and valid read once and alive and converged written once.
-    Returns (ms, "operations" or "bytes")."""
-    ops = FLOPS_PER_PAIR * b * n * (n - 1) / 2
-    moved = b * n * 16 + b * n + b * n + b
-    t_ops, t_bytes = ops / PEAK_F32, moved / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
 def device_kernels(fn, reps=1, top=0):
@@ -3045,6 +3049,306 @@ def entry_phase(dev, nms_cuda):
     return launches
 
 
+TOOLS_SMOKE = {"trials": "2", "stream_gops": "4", "pairs": "2", "steps": "3"}
+
+
+def tool_result(tool, result, name, values=("value",)):
+    """Checks a measurement tool's JSON result: the card named with its
+    power limit, and each of `values` (keys of result) finite and
+    positive. Returns result."""
+    dev = result["device"]
+    check(dev["name"] == name and dev["count"] >= 1,
+          f"{tool}: device {dev} is not {name}")
+    check(dev["power_limit_w"] is not None and dev["power_limit_w"] > 0,
+          f"{tool}: no power limit in {dev}")
+    for key in values:
+        v = result[key]
+        check(isinstance(v, (int, float)) and np.isfinite(v) and v > 0,
+              f"{tool}: {key} = {v!r} is not finite and positive")
+    return result
+
+
+def schedule_launches(calls):
+    """The kernel launches a recorded schedule implies: 4 per GOP of a
+    window, 2 per frame."""
+    return sum(4 * c["gops"] if c["kind"] == "window" else 2 for c in calls)
+
+
+def counted(nms_cuda, fn):
+    """(fn(), kernel launches during it)."""
+    import torch
+
+    torch.cuda.synchronize()
+    nms_cuda.LAUNCHES = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, nms_cuda.LAUNCHES
+
+
+def tools_phase(dev, nms_cuda, greedy_alive):
+    """Phase 36: every measurement tool of the port once through its
+    main(argv), at few trials (TOOLS_SMOKE). Checks each JSON result
+    (finite positive values, the card and its power limit), the kernel's
+    launches against each tool's schedule, the bench loop's detections
+    against process_prepared_window on the same payloads, the kernel's
+    masks against the plain version's on the bench's key and non-key RPN
+    inputs and on profile_detection's N = 6000 input (two kernels per
+    call there), report_mfu's shares (<= 105%) and its FLOP counts against
+    the CPU's at the tiny config, and ab_interleaved's A, B, A, B order.
+    Returns (launches by path, max abs error of the masks, the kernel's
+    timing entry at N = 6000 and that input)."""
+    import torch
+
+    from lsfa_tpu_torch import bench
+    from lsfa_tpu_torch.data import coviar
+    from lsfa_tpu_torch.tools import (ab_interleaved, bench_decode, bench_train,
+                                      profile_breakdown, profile_detection, profile_train,
+                                      report_mfu)
+
+    name = torch.cuda.get_device_name(0)
+    t = TOOLS_SMOKE
+    few = ["--trials", t["trials"], "--stream-gops", t["stream_gops"]]
+    launches, lines = {}, []
+    max_err = 0.0
+
+    # the bench: the headline (e2e and the 3-stream aggregate), device-only, latency
+    calls = []
+    with recorded_schedule(calls):
+        r, n = counted(nms_cuda, lambda: bench.main(few))
+    tool_result("bench", r, name, ("value", "per_gop_ms_p50", "per_gop_ms_p99",
+                                   "aggregate_3stream_timeplex_e2e_fps"))
+    check(n == schedule_launches(calls) > 0, f"bench e2e: {n} launches, schedule "
+          f"{schedule_launches(calls)}")
+    launches["bench_e2e"] = n
+    lines.append(f"e2e {r['value']:.1f} frames/s, per-GOP p50 {r['per_gop_ms_p50']:.1f} p99 "
+                 f"{r['per_gop_ms_p99']:.1f} ms, timeplex(3) "
+                 f"{r['aggregate_3stream_timeplex_e2e_fps']:.1f} frames/s ({n} launches)")
+    r, n = counted(nms_cuda, lambda: bench.main(
+        ["--device-only", "--trials", t["trials"], "--windows", "2"]))
+    tool_result("bench --device-only", r, name)
+    want = 4 * 4 * (1 + int(t["trials"]) * 2)          # G = 4 GOPs, warm-up and 2 windows a trial
+    check(n == want, f"bench --device-only: {n} launches, schedule {want}")
+    launches["bench_device_only"] = n
+    lines.append(f"device-only {r['value']:.1f} frames/s ({n})")
+    calls = []
+    with recorded_schedule(calls):
+        r, n = counted(nms_cuda, lambda: bench.main(["--latency", "--stream-gops",
+                                                      t["stream_gops"]]))
+    tool_result("bench --latency", r, name, ("value", "key_ms_p50", "non_key_ms_p95"))
+    check(n == schedule_launches(calls) == 2 * (2 + 12 * int(t["stream_gops"])),
+          f"bench --latency: {n} launches, schedule {schedule_launches(calls)}")
+    launches["bench_latency"] = n
+    lines.append(f"latency non-key p50 {r['value']:.2f} ms, key p50 {r['key_ms_p50']:.2f} ms ({n})")
+
+    # the bench loop changes no detection; the kernel on the bench's inputs
+    arm = bench.E2EArm(["--gops", "2"], device=dev, stream_gops=int(t["stream_gops"]))
+    arm.warmup()
+    windows = []
+    bench.e2e_trial(arm, collect=windows)
+    payloads = [arm.pv.gop(g) for g in range(arm.n_gops)]
+    det = arm.det
+    det.reset()
+    state = det.get_state()
+    for w, i in enumerate(range(0, len(payloads), arm.G)):
+        want = [o.cpu() for o in det.process_prepared_window(payloads[i:i + arm.G],
+                                                             first=(i == 0))]
+        check(len(windows[w]) == len(want) and all(torch.equal(a, b) for a, b in
+                                                    zip(windows[w], want)),
+              f"bench: window {w}'s detections differ from process_prepared_window's")
+    got, want, boxes, valid = key_rpn_masks(det, state, payloads[0], True, nms_cuda, greedy_alive)
+    check(torch.equal(got, want), "bench: kernel != plain on the key frame's RPN input")
+    det.reset()
+    det.process_prepared_window(payloads[:1], first=True)
+    got_c, want_c, boxes_c, _ = cur_rpn_masks(det, payloads[0], nms_cuda, greedy_alive)
+    check(torch.equal(got_c, want_c), "bench: kernel != plain on the non-key RPN input")
+    max_err = max(max_err, float((got.int() - want.int()).abs().max()),
+                  float((got_c.int() - want_c.int()).abs().max()))
+    lines.append(f"the e2e loop's {len(windows)} windows equal process_prepared_window's; masks "
+                 f"equal on its RPN inputs {tuple(boxes.shape)} and {tuple(boxes_c.shape)}")
+
+    # profile_detection's N = 6000 input: the two-phase route
+    boxes6, valid6 = profile_detection.rpn_input(det, 6000)
+    check(tuple(boxes6.shape) == (1, 6000, 4), f"profile_detection: RPN input {boxes6.shape}")
+    got6, _ = nms_cuda.greedy_alive_cuda(boxes6, valid6, det.cfg.TEST.RPN_NMS_THRESH, 31)
+    want6 = greedy_alive(boxes6, valid6, det.cfg.TEST.RPN_NMS_THRESH, 31)
+    check(torch.equal(got6, want6), "profile_detection: kernel != plain at N = 6000")
+    max_err = max(max_err, float((got6.int() - want6.int()).abs().max()))
+    kernels, nodes = graph_kernels(lambda: nms_cuda.greedy_alive_cuda(
+        boxes6, valid6, det.cfg.TEST.RPN_NMS_THRESH, 31))
+    check((kernels, nodes) == (2, 2), f"N = 6000: one call captured {kernels} kernels")
+    _, per_call = counted(nms_cuda, lambda: profile_detection.variant(det, 6000, "full")())
+    check(per_call == 2, f"profile_detection full at pre_nms 6000: {per_call} launches")
+    k_ms = cuda_ms(lambda: nms_cuda.greedy_alive_cuda(boxes6, valid6, 0.7, 31))
+    bound_ms, bound_by = nms_cuda.nms_bound_ms(1, 6000)
+    lines.append(f"N = 6000 (two-phase, {kernels} kernels per call): masks equal ("
+                 f"{int(got6.sum())} alive of {int(valid6.sum())}), {k_ms * 1e3:.1f} us per call, "
+                 f"bound {bound_ms * 1e3:.2f} us ({bound_by})")
+    n6000 = {"shape": [1, 6000], "thresh": 0.7, "us": k_ms * 1e3, "bound_us": bound_ms * 1e3,
+             "bound_by": bound_by, "share_of_bound": bound_ms / k_ms,
+             "plain_us": cuda_ms(lambda: greedy_alive(boxes6, valid6, 0.7, 31)) * 1e3}
+    del arm, det, windows
+
+    # the profilers
+    reps = 2
+    r, n = counted(nms_cuda, lambda: profile_detection.main(["--reps", str(reps)]))
+    tool_result("profile_detection", r, name, ())
+    want = (reps + 1) * 3 * (1 + 1 + 2) + 0             # prop 1, psroi 1, full 2 per call
+    check(n == want, f"profile_detection: {n} launches, schedule {want}")
+    check(all(np.isfinite(v) and v > 0 for v in r["variants"].values()),
+          f"profile_detection: {r['variants']}")
+    launches["profile_detection"] = n
+    lines.append(f"profile_detection full pre 6000 {r['variants']['full_pre6000']:.2f} ms, "
+                 f"fwd {r['variants']['fwd']:.2f} ms ({n})")
+    r, n = counted(nms_cuda, lambda: profile_breakdown.main(["--reps", str(reps)]))
+    tool_result("profile_breakdown", r, name, ())
+    check(all(np.isfinite(v) and v > 0 for v in r["components"].values()),
+          f"profile_breakdown: {r['components']}")
+    want = 1 + (reps + 1) * (2 + 1 + 1 + 1 + 2)         # rois, then the NMS-running components
+    check(n == want, f"profile_breakdown: {n} launches, schedule {want}")
+    launches["profile_breakdown"] = n
+    lines.append(f"profile_breakdown key fwd+det {r['components']['key_fwd_det']:.2f} ms, cur x11 "
+                 f"{r['components']['cur_fwd_no_det_x11']:.2f} ms ({n})")
+    r, n = counted(nms_cuda, lambda: profile_train.main(["--reps", str(reps), "--steps",
+                                                         t["steps"]]))
+    tool_result("profile_train", r, name, ("images_per_s",))
+    want = 2 * (reps + 1) + 1 + 5 + int(t["steps"])    # fwd_loss, grad; full steps; chained
+    check(n == want, f"profile_train: {n} launches, schedule {want}")
+    launches["profile_train"] = n
+    lines.append(f"profile_train full step {r['phases']['full_step']:.1f} ms, chained "
+                 f"{r['phases']['chained_step']:.1f} ms ({n})")
+
+    # the train bench, LSFA and R-FCN
+    for cfg_name, argv in (("lsfa", []), ("rfcn", ["--cfg", str(RFCN_CONFIG)])):
+        r, n = counted(nms_cuda, lambda: bench_train.main(["--steps", t["steps"], *argv]))
+        tool_result(f"bench_train {cfg_name}", r, name, ("value", "ms_per_step", "peak_gib"))
+        check(n == 1 + int(t["steps"]), f"bench_train {cfg_name}: {n} launches, not 1 per step")
+        check(np.isfinite(r["last_loss"]), f"bench_train {cfg_name}: loss {r['last_loss']}")
+        launches[f"bench_train_{cfg_name}"] = n
+        lines.append(f"bench_train {cfg_name} {r['ms_per_step']:.1f} ms/step, "
+                     f"{r['peak_gib']:.2f} GiB ({n})")
+
+    # report_mfu: shares, and the FLOP count of each program equal to the CPU's
+    trials = 3
+    r, n = counted(nms_cuda, lambda: report_mfu.main(["--trials", str(trials)]))
+    tool_result("report_mfu", r, name, ())
+    rows = r["programs"]
+    for prog, row in rows.items():
+        for share in ("mfu_pct", "hbm_util_pct"):
+            check(row[share] is not None and 0 < row[share] <= 105,
+                  f"report_mfu {prog}: {share} = {row[share]}")
+    k = max(5, trials // 2)
+    want = (2 + 2 + 4 * 2) * (1 + 1 + trials) + 2 + k  # inference: count + timed; train
+    check(n == want, f"report_mfu: {n} launches, schedule {want}")
+    launches["report_mfu"] = n
+    lines.append("report_mfu " + ", ".join(
+        f"{p} {row['ms']:.2f} ms {row['gflop']:.1f} GFLOP MFU {row['mfu_pct']:.2f}% HBM "
+        f"{row['hbm_util_pct']:.2f}%" for p, row in rows.items()) + f" ({n})")
+    card, n_tiny = counted(nms_cuda, lambda: report_mfu.main(["--tiny", "--trials", "1"]))
+    cpu = report_mfu.main(["--tiny", "--trials", "1", "--device", "cpu"])
+    for prog, row in report_mfu.program_rows(card).items():
+        cpu_row = report_mfu.program_rows(cpu)[prog]
+        check(row["gflop"] == cpu_row["gflop"] and row["nms_calls"] == cpu_row["nms_calls"],
+              f"report_mfu --tiny {prog}: {row['gflop']} GFLOP on the card, "
+              f"{cpu_row['gflop']} on the CPU")
+    launches["report_mfu_tiny"] = n_tiny
+    lines.append(f"report_mfu --tiny: FLOPs of the {len(card['programs'])} programs equal the "
+                 f"CPU's")
+
+    # ab_interleaved
+    calls = []
+    with recorded_schedule(calls):
+        r, n = counted(nms_cuda, lambda: ab_interleaved.main(
+            ["--b", "--gops 4", "--pairs", t["pairs"], "--stream-gops", t["stream_gops"]]))
+    tool_result("ab_interleaved", r, name, ("median_b_over_a", "median_fps_a", "median_fps_b"))
+    check(r["order"] == ["A", "B"] * int(t["pairs"]), f"ab_interleaved: order {r['order']}")
+    check(np.allclose(r["pair_ratios"], np.asarray(r["fps_b"]) / np.asarray(r["fps_a"])),
+          f"ab_interleaved: ratios {r['pair_ratios']}")
+    check(n == schedule_launches(calls), f"ab_interleaved: {n} launches, schedule "
+          f"{schedule_launches(calls)}")
+    launches["ab_interleaved"] = n
+    lines.append(f"ab_interleaved B/A {r['median_b_over_a']:.3f} ({r['ratio_spread']}) ({n})")
+
+    # bench_decode is host-only: without the native library it raises, naming it
+    if coviar.available():
+        r = bench_decode.main(["--gops", "1", "--passes", "1"])
+        check(all(c["ms_per_frame"] > 0 for c in r["clips"].values()), f"bench_decode: {r}")
+        lines.append("bench_decode ran")
+    else:
+        try:
+            bench_decode.main([])
+            fail("bench_decode ran without the native library")
+        except RuntimeError as e:
+            check("libcoviar_tpu.so" in str(e), f"bench_decode raised {e}")
+        lines.append("bench_decode raises without the native decoder, naming libcoviar_tpu.so")
+    print(f"tools: on {name}: " + "; ".join(lines))
+    return launches, max_err, n6000, (boxes6, valid6)
+
+
+def tools_trace_phase(dev, nms_cuda, tmp):
+    """The profilers' --trace parts (phase 27's place: after a profiled
+    window the host's launches stay slower): profile_breakdown over one
+    GOP and profile_train over 3 chained steps, each a Chrome trace with
+    its top kernels and busy share. Returns launches by path."""
+    from lsfa_tpu_torch.tools import profile_breakdown, profile_train
+
+    launches = {}
+    r, n = counted(nms_cuda, lambda: profile_breakdown.main(
+        ["--reps", "1", "--trace", str(tmp / "breakdown")]))
+    check(n == 1 + 2 * 7 + 4, f"profile_breakdown --trace: {n} launches")
+    launches["profile_breakdown_trace"] = n
+    gop = r["trace"]
+    r, n = counted(nms_cuda, lambda: profile_train.main(
+        ["--reps", "1", "--steps", "2", "--trace", str(tmp / "train")]))
+    check(n == 2 * 2 + 1 + 5 + 2 + 3, f"profile_train --trace: {n} launches")
+    launches["profile_train_trace"] = n
+    for what, tr in (("a GOP", gop), ("3 train steps", r["trace"])):
+        if tr["busy_share"] is None:
+            print(f"profiled: {what} through the profiler tools: {NOT_TRACED}")
+        else:
+            top = ", ".join(f"{k['name'][:40]} {k['share']:.1%}" for k in tr["top"][:3])
+            print(f"profiled: {what} through the profiler tools: {tr['kernels']} kernels, "
+                  f"{tr['device_ms']:.2f} ms on the device, busy share {tr['busy_share']:.3f}; "
+                  f"top {top}")
+    return launches
+
+
+def tools_profiled(dev, nms_cuda, n6000, input6000):
+    """Phase 36's profiled part: the kernel's device time at N = 6000
+    (into n6000) and the profilers' --trace parts. Returns launches by
+    path."""
+    _, dev_us = device_kernels(lambda: nms_cuda.greedy_alive_cuda(*input6000, 0.7, 31), 20)
+    if dev_us is None:
+        print(f"profiled: N = 6000 two-phase: {NOT_TRACED}")
+    else:
+        n6000.update(device_us=dev_us, device_share_of_bound=n6000["bound_us"] / dev_us)
+        print(f"profiled: N = 6000 two-phase (profile_detection's input): {dev_us:.1f} us on the "
+              f"device (mean of 20), {n6000['device_share_of_bound']:.4f} of the bound")
+    with tempfile.TemporaryDirectory() as scratch:
+        return tools_trace_phase(dev, nms_cuda, Path(scratch))
+
+
+def tools_only():
+    """`python3 chip_smoke.py --tools`: phase 36 alone (and its profiled
+    part), after the build; prints the launches and the N = 6000 timing
+    as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs an NVIDIA card")
+    sys.path.insert(0, str(REPO))
+    from lsfa_tpu_torch.ops import nms_cuda
+    from lsfa_tpu_torch.ops.nms import greedy_alive
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    nms_cuda.build()
+    dev = torch.device("cuda", 0)
+    launches, err, n6000, input6000 = tools_phase(dev, nms_cuda, greedy_alive)
+    launches.update(tools_profiled(dev, nms_cuda, n6000, input6000))
+    print(json.dumps({"launches": launches, "max_abs_err": err, "n6000": n6000,
+                      "seconds": time.perf_counter() - T0}))
+
+
 def main():
     import os
 
@@ -3120,7 +3424,7 @@ def main():
         if timed:
             k_ms = cuda_ms(lambda: nms_cuda.greedy_alive_cuda(b, v, thresh, sweeps))
             p_ms = cuda_ms(lambda: greedy_alive(b, v, thresh, sweeps))
-            bound_ms, bound_by = nms_bound_ms(bsz, n)
+            bound_ms, bound_by = nms_cuda.nms_bound_ms(bsz, n)
             shapes.append({"shape": [bsz, n], "thresh": thresh, "us": k_ms * 1e3,
                            "plain_us": p_ms * 1e3, "bound_us": bound_ms * 1e3,
                            "bound_by": bound_by, "share_of_bound": bound_ms / k_ms,
@@ -3250,7 +3554,7 @@ def main():
     boxes, valid, thresh, sweeps, _ = gop_classes
     k_ms = cuda_ms(lambda: nms_cuda.greedy_alive_cuda(boxes, valid, thresh, sweeps))
     p_ms = cuda_ms(lambda: greedy_alive(boxes, valid, thresh, sweeps))
-    bound_ms, bound_by = nms_bound_ms(*valid.shape)
+    bound_ms, bound_by = nms_cuda.nms_bound_ms(*valid.shape)
     print(f"batched GOP: the kernel on that run's per-class input {tuple(boxes.shape)} t={thresh}: "
           f"{k_ms * 1e3:.1f} us per call (median of 20, wrapper included), plain "
           f"{p_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us ({bound_by}), share "
@@ -3278,6 +3582,11 @@ def main():
     max_err = max(max_err, ladder_err)
     print(f"phases 1-35: {time.perf_counter() - T0:.1f} s since the script started")
 
+    # 36: the measurement tools (their --trace parts run after phase 27)
+    tools_launches, tools_err, n6000, input6000 = tools_phase(dev, nms_cuda, greedy_alive)
+    max_err = max(max_err, tools_err)
+    print(f"phases 1-36: {time.perf_counter() - T0:.1f} s since the script started")
+
     # 27. launches and device time by torch.profiler, last: after a profiled
     # window the host's launches stay slower, which would bias phases 3-26
     rfcn_account(dev)
@@ -3304,6 +3613,8 @@ def main():
                          f"{entry['device_share_of_bound']:.3f} of the bound; with num_sweeps=0 "
                          f"(build and one test sweep) {build_us:.1f} us")
         print(line)
+    tools_launches.update(tools_profiled(dev, nms_cuda, n6000, input6000))
+    shapes.append(n6000)
 
     rpn = next(s for s in shapes if s["shape"] == [12, 2048])
     print(f"script: {time.perf_counter() - T0:.1f} s in all, on {smi}")
@@ -3317,7 +3628,8 @@ def main():
                      + sum(tt_launches.values()) + sum(mobile_launches.values())
                      + hobot_launches + gop_launches + sum(demo_launches.values())
                      + overfit_launches + bn_ar_launches + sum(bf16_launches.values())
-                     + jpeg_launches + sum(ladder_launches.values()) + entry_launches),
+                     + jpeg_launches + sum(ladder_launches.values()) + entry_launches
+                     + sum(tools_launches.values())),
         "max_abs_err": max_err,
         "ms": rpn["us"] / 1e3, "plain_ms": rpn["plain_us"] / 1e3,
         "bound_ms": rpn["bound_us"] / 1e3, "bound_by": rpn["bound_by"], "library_ms": None,
@@ -3329,7 +3641,7 @@ def main():
                              "batch_gop": gop_launches, **demo_launches,
                              "overfit_smoke": overfit_launches, "bn_allreduce": bn_ar_launches,
                              **bf16_launches, "jpeg_eval": jpeg_launches, **ladder_launches,
-                             "entry": entry_launches},
+                             "entry": entry_launches, **tools_launches},
         "shapes": shapes}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -3380,7 +3692,9 @@ def long_ladder(argv):
 
 
 if __name__ == "__main__":
-    if len(sys.argv) > 1:
+    if sys.argv[1:] == ["--tools"]:
+        tools_only()
+    elif len(sys.argv) > 1:
         long_ladder(sys.argv[1:])
     else:
         main()

@@ -37,6 +37,12 @@ FUSED_MAX_N = 2048      # one cluster launch, no scratch, up to this N
 MAX_N = 8192            # two-phase scratch is batch * N * ceil(N/64) * 8 bytes
 MAX_BATCH = 65535       # the two-phase build grid's y extent
 
+# the least time of the fixpoint on an H100 SXM (NVIDIA data sheet):
+# float32 outside the tensor cores, HBM3
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+FLOPS_PER_PAIR = 16     # two extents 8, intersection 3, union and clamp 3, divide 1, compare 1
+
 # launches of the kernel since the last reset (one per wrapper call)
 LAUNCHES = 0
 _lib = None
@@ -63,6 +69,26 @@ def division_free_threshold(iou_thresh: float):
     mid = (float(t) + float(t_up)) / 2.0
     tie_up = int(t_up.view(np.uint32)) % 2 == 0
     return float(t), float(t_up), mid, tie_up
+
+
+def nms_flops(b: int, n: int) -> float:
+    """The fixpoint's float32 operations on (b, n) boxes: one IoU test per
+    pair of the strict upper triangle, FLOPS_PER_PAIR each."""
+    return FLOPS_PER_PAIR * b * n * (n - 1) / 2
+
+
+def nms_bytes(b: int, n: int) -> int:
+    """The fixpoint's bytes: boxes (float32 x4) and valid read once, alive
+    and converged written once."""
+    return b * n * 16 + b * n + b * n + b
+
+
+def nms_bound_ms(b: int, n: int):
+    """The least time of the fixpoint on an H100: `nms_flops` at PEAK_F32
+    against `nms_bytes` at PEAK_BYTES. Returns (ms, "operations" or
+    "bytes")."""
+    t_ops, t_bytes = nms_flops(b, n) / PEAK_F32, nms_bytes(b, n) / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
 def _nvcc() -> str:
