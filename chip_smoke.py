@@ -11,7 +11,9 @@ Phases, each printing one line before the last:
      t=0.7, (30, 300) t=0.3, (11, 2048) t=0.7, (330, 300) t=0.3, the RPN
      stand-in (12, 2048), the batched GOP's per-class (360, 300),
      suppression chains at B = 1, the odd cap 1, a cut valid mask, ragged N, N = 1, the two-phase N = 2049 and 8192,
-     and knife-edge pairs whose float32 IoU lies within 2 ulps of t;
+     knife-edge pairs whose float32 IoU lies within 2 ulps of t, and the
+     lane-batched GOP's four calls at B = 4 and 8 lanes ((B, 2048) and
+     (11 B, 2048) t=0.7, (30 B, 300) and (330 B, 300) t=0.3);
      checks that N <= 2048 allocates no scratch (torch.cuda memory
      statistics) and that a call is one kernel for N <= 2048 and two
      above (the nodes of a CUDA graph captured around it); median times per call of kernel and plain version, the
@@ -231,9 +233,30 @@ Phases, each printing one line before the last:
      counts at the tiny config equal to the CPU's, ab_interleaved's trial
      order A, B, A, B. Its profiled part (the kernel's device time at
      N = 6000, the profilers' --trace windows) runs after phase 27.
+ 37. lockstep lanes: the flagship of phase 4 through
+     StreamingDetector(batch=B).process_gops for B = 1, 2, 4, 8 over B
+     seeded I420 streams, 3 windows of 2 GOPs staged from pinned memory
+     with one window in flight after a warm-up window: aggregate frames/s,
+     ms per window, 8 kernel launches per window, detection shapes and
+     finiteness, peak memory from a fresh reset_peak_memory_stats; at
+     B = 4, each lane against the single-lane run of its own stream, on a
+     copy of the weights conditioned so that scores do not saturate
+     (calibrate_input_bn, spread_heads), in bf16 and in float32, and the
+     single-lane bf16 run against the float32 one (the bf16 rounding the
+     lanes are held within); the kernel's masks equal to the plain
+     version's on the lane path's real key (4, 2048) and non-key
+     (44, 2048) RPN inputs; eval_videos_lanes over phase 13's records on
+     2 lanes and over one of them on 4 (every real frame filed, every
+     padding frame dropped, 2 launches per step, no host sync inside an
+     enqueue) and against phase 13's eval_videos detections; bench
+     --multistream 4 through its main (56 launches); run_test(lanes=2)
+     over a VID tree of 36 and 30 frames (66 records, 72 launches). Its
+     profiled part (one window of each B under torch.profiler: kernels
+     per window, device time, busy share) runs after phase 36's.
 `python3 chip_smoke.py --ladder STEPS --out DIR` runs phase 34 alone with
 a real step budget (`long_ladder`); `python3 chip_smoke.py --tools` runs
-phase 36 alone (`tools_only`).
+phase 36 alone (`tools_only`); `python3 chip_smoke.py --lanes` runs phase
+3 at the lane shapes and phase 37 alone (`lanes_only`).
 Then the script's seconds, one JSON line for the kernels and, last, the
 result line. Any failed phase exits non-zero before the result line is
 printed.
@@ -360,7 +383,8 @@ def knife_edge_boxes(rng, batch: int, n: int, iou_thresh: float, ulps: int = 2):
 
 def kernel_cases(rng):
     """(name, boxes (B, N, 4), valid (B, N), thresh, sweeps, timed). The
-    first two draw the inputs of the earlier slices' timings."""
+    first two draw the inputs of the earlier slices' timings; the lane
+    shapes come last."""
     def stack(b, n):
         return np.stack([sorted_boxes(rng, n) for _ in range(b)])
 
@@ -394,7 +418,21 @@ def kernel_cases(rng):
          np.ones((1, 2048), bool), 0.5, 31, False),
         ("knife edge t=0.6 (2, 2049)", knife_edge_boxes(rng, 2, 2049, 0.6),
          np.ones((2, 2049), bool), 0.6, 31, False),
-    ]
+    ] + lane_kernel_cases(rng)
+
+
+# the lane-batched GOP's four calls of the kernel at B lanes: (batch, N,
+# thresh, the share of valid candidates drawn)
+LANE_CALLS = (("RPN key", 1, 2048, 0.7, 0.95), ("per-class key", 30, 300, 0.3, 0.8),
+              ("RPN non-key", 11, 2048, 0.7, 0.95), ("per-class non-key", 330, 300, 0.3, 0.8))
+
+
+def lane_kernel_cases(rng):
+    """`kernel_cases` entries of the lane-batched GOP at 4 and 8 lanes."""
+    return [(f"lanes B={b} {what} ({k * b}, {n})",
+             np.stack([sorted_boxes(rng, n) for _ in range(k * b)]),
+             rng.uniform(size=(k * b, n)) < share, t, 31, True)
+            for b in (4, 8) for what, k, n, t, share in LANE_CALLS]
 
 
 NOT_TRACED = "device time not measured: torch.profiler recorded no device event in 3 windows"
@@ -503,6 +541,61 @@ def frame_rpn_masks(det, cfg, frame, info, nms_cuda, greedy_alive):
         out = det.model(torch.from_numpy(frame).to(det.device))
     return rpn_masks(out, det.anchors, torch.from_numpy(info).to(det.device), cfg, nms_cuda,
                      greedy_alive)
+
+
+def kernel_phase(dev, cases, nms_cuda, greedy_alive):
+    """Phase 3 over `cases` (`kernel_cases` entries): masks and converged
+    flags equal to the plain version's, kernels per call (CUDA graph), the
+    fused path's allocations, and at the timed cases the kernel's and the
+    plain version's time per call against the bound. Returns (max abs
+    error, timing entries, the checked cases for the profiled phase)."""
+    import torch
+
+    max_err = 0.0
+    shapes, checked = [], []
+    for name, boxes, valid, thresh, sweeps, timed in cases:
+        b = torch.from_numpy(boxes).to(dev)
+        v = torch.from_numpy(valid).to(dev)
+        got, conv = nms_cuda.greedy_alive_cuda(b, v, thresh, sweeps)
+        want, want_conv = greedy_alive(b, v, thresh, sweeps, with_converged=True)
+        torch.cuda.synchronize()
+        err = float((got.int() - want.int()).abs().max())
+        max_err = max(max_err, err)
+        check(torch.equal(got, want), f"kernel mask != plain mask on {name}")
+        check(torch.equal(conv, want_conv), f"kernel converged != plain on {name}")
+        bsz, n = valid.shape
+        csize = nms_cuda.cluster_size(bsz, n, dev)
+        kernels, nodes = graph_kernels(lambda: nms_cuda.greedy_alive_cuda(b, v, thresh, sweeps))
+        check((kernels, nodes) == ((1, 1) if n <= nms_cuda.FUSED_MAX_N else (2, 2)),
+              f"{name}: one call captured {kernels} kernels in {nodes} graph nodes")
+        checked.append((name, b, v, thresh, sweeps, timed, kernels))
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        nms_cuda.greedy_alive_cuda(b, v, thresh, sweeps)
+        extra = torch.cuda.max_memory_allocated(dev) - before
+        if n <= nms_cuda.FUSED_MAX_N:
+            # the output alone: alive (B, N) and converged (B,) in one block
+            # of the caching allocator's 512-byte granularity
+            out_bytes = -(-bsz * (n + 1) // 512) * 512
+            check(extra <= out_bytes, f"{name}: the fused path allocated {extra} bytes, its "
+                                      f"output {out_bytes}")
+        line = (f"kernel vs plain: {name} t={thresh} sweeps={sweeps}: masks and converged equal "
+                f"({int(got.sum())} alive, {int(conv.sum())}/{bsz} converged); cluster {csize}, "
+                f"{kernels} kernel launch(es) per call (CUDA graph), {extra} bytes allocated")
+        if timed:
+            k_ms = cuda_ms(lambda: nms_cuda.greedy_alive_cuda(b, v, thresh, sweeps))
+            p_ms = cuda_ms(lambda: greedy_alive(b, v, thresh, sweeps))
+            bound_ms, bound_by = nms_cuda.nms_bound_ms(bsz, n)
+            shapes.append({"shape": [bsz, n], "thresh": thresh, "us": k_ms * 1e3,
+                           "plain_us": p_ms * 1e3, "bound_us": bound_ms * 1e3,
+                           "bound_by": bound_by, "share_of_bound": bound_ms / k_ms,
+                           "cluster": csize})
+            line += (f"; kernel {k_ms * 1e3:.1f} us per call (median of 20, wrapper included), "
+                     f"plain {p_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us ({bound_by}), "
+                     f"share {bound_ms / k_ms:.3f}")
+        print(line)
+    return max_err, shapes, checked
 
 
 def synth_gops(cfg, n_gops, seed, bucket=BUCKET, content=CONTENT, scale=600 / 576):
@@ -983,7 +1076,9 @@ def recorded_schedule(calls):
                 finally:
                     torch.cuda.set_sync_debug_mode("default")
             entry["enqueue"] = time.perf_counter() - entry["t0"]
-            entry["syncs"] = sum("synchroniz" in str(w.message) for w in caught)
+            flagged = [w for w in caught if "synchroniz" in str(w.message)]
+            entry["syncs"] = len(flagged)
+            entry["sync_sites"] = [f"{w.filename}:{w.lineno}" for w in flagged]
             calls.append(entry)
             return out
         return call
@@ -3392,47 +3487,8 @@ def main():
           f"{nms_cuda.BUILD_SECONDS:.2f} s (build or load of a cached build)")
 
     # 3. kernel vs plain, bit for bit
-    rng = np.random.default_rng(0)
-    max_err = 0.0
-    shapes, checked = [], []
-    for name, boxes, valid, thresh, sweeps, timed in kernel_cases(rng):
-        b = torch.from_numpy(boxes).to(dev)
-        v = torch.from_numpy(valid).to(dev)
-        got, conv = nms_cuda.greedy_alive_cuda(b, v, thresh, sweeps)
-        want, want_conv = greedy_alive(b, v, thresh, sweeps, with_converged=True)
-        torch.cuda.synchronize()
-        err = float((got.int() - want.int()).abs().max())
-        max_err = max(max_err, err)
-        check(torch.equal(got, want), f"kernel mask != plain mask on {name}")
-        check(torch.equal(conv, want_conv), f"kernel converged != plain on {name}")
-        bsz, n = valid.shape
-        csize = nms_cuda.cluster_size(bsz, n, dev)
-        kernels, nodes = graph_kernels(lambda: nms_cuda.greedy_alive_cuda(b, v, thresh, sweeps))
-        check((kernels, nodes) == ((1, 1) if n <= nms_cuda.FUSED_MAX_N else (2, 2)),
-              f"{name}: one call captured {kernels} kernels in {nodes} graph nodes")
-        checked.append((name, b, v, thresh, sweeps, timed, kernels))
-        torch.cuda.synchronize()
-        before = torch.cuda.memory_allocated(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        nms_cuda.greedy_alive_cuda(b, v, thresh, sweeps)
-        extra = torch.cuda.max_memory_allocated(dev) - before
-        if n <= nms_cuda.FUSED_MAX_N:
-            check(extra <= 2 * 512 + bsz * n, f"{name}: the fused path allocated {extra} bytes")
-        line = (f"kernel vs plain: {name} t={thresh} sweeps={sweeps}: masks and converged equal "
-                f"({int(got.sum())} alive, {int(conv.sum())}/{bsz} converged); cluster {csize}, "
-                f"{kernels} kernel launch(es) per call (CUDA graph), {extra} bytes allocated")
-        if timed:
-            k_ms = cuda_ms(lambda: nms_cuda.greedy_alive_cuda(b, v, thresh, sweeps))
-            p_ms = cuda_ms(lambda: greedy_alive(b, v, thresh, sweeps))
-            bound_ms, bound_by = nms_cuda.nms_bound_ms(bsz, n)
-            shapes.append({"shape": [bsz, n], "thresh": thresh, "us": k_ms * 1e3,
-                           "plain_us": p_ms * 1e3, "bound_us": bound_ms * 1e3,
-                           "bound_by": bound_by, "share_of_bound": bound_ms / k_ms,
-                           "cluster": csize})
-            line += (f"; kernel {k_ms * 1e3:.1f} us per call (median of 20, wrapper included), "
-                     f"plain {p_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us ({bound_by}), "
-                     f"share {bound_ms / k_ms:.3f}")
-        print(line)
+    max_err, shapes, checked = kernel_phase(dev, kernel_cases(np.random.default_rng(0)),
+                                            nms_cuda, greedy_alive)
 
     # 4. the main path at full width
     cfg = get_default_config()
@@ -3587,6 +3643,12 @@ def main():
     max_err = max(max_err, tools_err)
     print(f"phases 1-36: {time.perf_counter() - T0:.1f} s since the script started")
 
+    # 37: lockstep lanes (their profiled windows run after phase 27)
+    lanes_launches, lanes_err, lane_runs = lanes_phase(dev, model, cfg, nms_cuda, greedy_alive,
+                                                       eval_dets)
+    max_err = max(max_err, lanes_err)
+    print(f"phases 1-37: {time.perf_counter() - T0:.1f} s since the script started")
+
     # 27. launches and device time by torch.profiler, last: after a profiled
     # window the host's launches stay slower, which would bias phases 3-26
     rfcn_account(dev)
@@ -3615,6 +3677,7 @@ def main():
         print(line)
     tools_launches.update(tools_profiled(dev, nms_cuda, n6000, input6000))
     shapes.append(n6000)
+    lanes_profiled(dev, lane_runs)
 
     rpn = next(s for s in shapes if s["shape"] == [12, 2048])
     print(f"script: {time.perf_counter() - T0:.1f} s in all, on {smi}")
@@ -3629,7 +3692,7 @@ def main():
                      + hobot_launches + gop_launches + sum(demo_launches.values())
                      + overfit_launches + bn_ar_launches + sum(bf16_launches.values())
                      + jpeg_launches + sum(ladder_launches.values()) + entry_launches
-                     + sum(tools_launches.values())),
+                     + sum(tools_launches.values()) + sum(lanes_launches.values())),
         "max_abs_err": max_err,
         "ms": rpn["us"] / 1e3, "plain_ms": rpn["plain_us"] / 1e3,
         "bound_ms": rpn["bound_us"] / 1e3, "bound_by": rpn["bound_by"], "library_ms": None,
@@ -3641,11 +3704,451 @@ def main():
                              "batch_gop": gop_launches, **demo_launches,
                              "overfit_smoke": overfit_launches, "bn_allreduce": bn_ar_launches,
                              **bf16_launches, "jpeg_eval": jpeg_launches, **ladder_launches,
-                             "entry": entry_launches, **tools_launches},
+                             "entry": entry_launches, **tools_launches, **lanes_launches},
         "shapes": shapes}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
+
+
+LANE_COUNTS = (1, 2, 4, 8)
+LANE_WINDOWS = 3                      # timed windows of 2 GOPs at each lane count
+# each lane at B = 4 against the single-lane run of its own stream: in
+# float32 the key-feature carry, the non-key head maps (over their largest
+# |value|) and, on the frames whose valid rows and labels agree, the scores
+# and boxes (over the frame's largest coordinate) within LANE_F32_REL; in
+# bf16 the carry and the maps within LANE_BF16_OWN times the single-lane bf16
+# run's own distance to its float32 run (PERF.md §6)
+LANE_F32_REL = 1e-4
+LANE_BF16_OWN = 1.5
+
+
+def lane_inputs(cfg, lanes, seed=40):
+    """(process_gops inputs, the lanes' GOP payloads) of `lanes` seeded
+    I420 streams (`synth_gops`, seed + lane), 2 GOPs each."""
+    from lsfa_tpu_torch.eval.multistream import stack_lane_gops
+
+    gops = [synth_gops(cfg, 2, seed + lane) for lane in range(lanes)]
+    return stack_lane_gops(gops), gops
+
+
+def frame_diff(d, v, wd, wv):
+    """Two frames' detections: (valid rows and labels equal, the valid
+    counts equal, max score difference and max box difference over the
+    frame's largest |coordinate| where the rows agree, else None, and max
+    difference of the sorted valid scores where the counts agree, else
+    None)."""
+    d, v, wd, wv = (np.asarray(x) for x in (d, v, wd, wv))
+    counts = int(v.sum()) == int(wv.sum())
+    ranked = (float(np.abs(np.sort(d[v][:, 1]) - np.sort(wd[wv][:, 1])).max())
+              if counts and wv.any() else (0.0 if counts else None))
+    if not (np.array_equal(v, wv) and np.array_equal(d[v][:, 0], wd[wv][:, 0])):
+        return False, counts, None, None, ranked
+    if not wv.any():
+        return True, True, 0.0, 0.0, 0.0
+    mag = float(np.abs(wd[wv][:, 2:]).max())
+    return (True, True, float(np.abs(d[v][:, 1] - wd[wv][:, 1]).max()),
+            float(np.abs(d[v][:, 2:] - wd[wv][:, 2:]).max()) / max(mag, 1e-6), ranked)
+
+
+def frame_stats(diffs):
+    """`frame_diff`s summed up: {frames, rows_differ, counts_differ, score,
+    box (over the frames whose rows agree), ranked (the sorted scores, over
+    the frames whose counts agree)}."""
+    rows = [x for x in diffs if x[0]]
+    counted = [x for x in diffs if x[1]]
+    return {"frames": len(diffs), "rows_differ": len(diffs) - len(rows),
+            "counts_differ": len(diffs) - len(counted),
+            "score": max((x[2] for x in rows), default=0.0),
+            "box": max((x[3] for x in rows), default=0.0),
+            "ranked": max((x[4] for x in counted), default=0.0)}
+
+
+def stats_line(st):
+    return (f"{st['frames']} frames, {st['rows_differ']} with other valid rows or labels, "
+            f"{st['counts_differ']} with another count of valid rows; where the rows agree "
+            f"scores within {st['score']:.2e} and boxes within {st['box']:.2e} of the frame's "
+            f"largest coordinate; where the counts agree the sorted scores within "
+            f"{st['ranked']:.2e}")
+
+
+def lane_runs(model, cfg, lanes=4):
+    """`lanes` seeded streams (2 GOPs each) as the lanes of one detector and
+    each alone. Returns {"lanes", "single"}: each a list per lane of (the
+    frames' (dets, valid) on the host, the key-feature carry, the last
+    GOP's non-key head maps)."""
+    import torch
+
+    from lsfa_tpu_torch.eval.tester import StreamingDetector
+
+    ins, gops = lane_inputs(cfg, lanes)
+    dev = next(model.parameters()).device
+    det = StreamingDetector(model, cfg, BUCKET, batch=lanes)
+    kd, kv, cd, cv = (o.cpu() for o in det.process_gops(*ins, first=True))
+    smalls, mvs, ress = (torch.from_numpy(x[1]).to(dev) for x in ins[1:4])     # GOP 1's
+    n = smalls.shape[0]
+    with torch.no_grad():
+        maps = model.forward_cur(smalls.flatten(0, 1), det.feat_key.repeat(n, 1, 1, 1),
+                                 mvs.float().flatten(0, 1), ress.float().flatten(0, 1))
+    out = {"lanes": [], "single": []}
+    for lane in range(lanes):
+        frames = [(kd[g, lane], kv[g, lane]) for g in range(2)]
+        frames += [(cd[g, i, lane], cv[g, i, lane]) for g in range(2) for i in range(n)]
+        out["lanes"].append((frames, det.feat_key[lane], {
+            k: v.unflatten(0, (n, lanes))[:, lane] for k, v in maps.items()}))
+    single = StreamingDetector(model, cfg, BUCKET)
+    for lane, lane_gops in enumerate(gops):
+        single.reset()
+        skd, skv, scd, scv = (o.cpu() for o in single.process_prepared_window(lane_gops,
+                                                                               first=True))
+        with torch.no_grad():
+            smaps = model.forward_cur(smalls[:, lane], single.feat_key.expand(n, -1, -1, -1),
+                                      mvs[:, lane].float(), ress[:, lane].float())
+        frames = [(skd[g, 0], skv[g, 0]) for g in range(2)]
+        frames += [(scd[g, i], scv[g, i]) for g in range(2) for i in range(n)]
+        out["single"].append((frames, single.feat_key[0], smaps))
+    torch.cuda.synchronize()
+    return out
+
+
+def compare_runs(got, want):
+    """Two `lane_runs` lists, lane by lane: `frame_stats` of the frames
+    with the carry's and the head maps' max difference over the largest
+    |value| of `want`'s (carry, maps)."""
+    diffs, carry, maps = [], 0.0, 0.0
+    for (gf, gc, gm), (wf, wc, wm) in zip(got, want):
+        diffs += [frame_diff(*g, *w) for g, w in zip(gf, wf)]
+        carry = max(carry, float((gc - wc).abs().max() / wc.abs().max()))
+        for k, w in wm.items():
+            maps = max(maps, float((gm[k].float() - w.float()).abs().max()
+                                   / w.float().abs().max()))
+    return {**frame_stats(diffs), "carry": carry, "maps": maps}
+
+
+def lane_rpn_masks(det, ins, nms_cuda, greedy_alive):
+    """`rpn_masks` on the lane path's key-step RPN input (B, 2048) and on
+    its non-key batch's (11 B, 2048), GOP 0 of `ins` from a fresh stream.
+    Returns [(kernel's, plain's, boxes), ...] for the two."""
+    import torch
+
+    dev = det.device
+    keys, smalls, mvs, ress, info = (torch.from_numpy(x[0] if x.ndim > 2 else x).to(dev)
+                                     for x in ins)
+    b, n = keys.shape[0], smalls.shape[0]
+    out = []
+    with torch.no_grad():
+        kout = det.model.forward_key(keys, det.data_key, det.feat_key,
+                                     torch.ones(b, device=dev))
+        got, want, boxes, _ = rpn_masks(kout, det.anchors, info, det.cfg, nms_cuda, greedy_alive)
+        out.append((got, want, boxes))
+        cout = det.model.forward_cur(smalls.flatten(0, 1), kout["feat"].repeat(n, 1, 1, 1),
+                                     mvs.float().flatten(0, 1), ress.float().flatten(0, 1))
+        got, want, boxes, _ = rpn_masks(cout, det.anchors, info.repeat(n, 1), det.cfg, nms_cuda,
+                                        greedy_alive)
+        out.append((got, want, boxes))
+    return out
+
+
+@contextlib.contextmanager
+def recorded_lanes(metas):
+    """Context: each MultiStreamEvalLoader step's lane_meta is appended to
+    `metas`."""
+    from lsfa_tpu_torch.eval.multistream import MultiStreamEvalLoader
+
+    steps = MultiStreamEvalLoader.__iter__
+
+    def recording(self):
+        for item in steps(self):
+            metas.append(item["lane_meta"])
+            yield item
+
+    MultiStreamEvalLoader.__iter__ = recording
+    try:
+        yield
+    finally:
+        MultiStreamEvalLoader.__iter__ = steps
+
+
+def lane_loop(name, model, cfg, nms_cuda, lengths, lanes):
+    """eval_videos_lanes over SyntheticPreparedVideo records of `lengths`:
+    every real frame has a record and no padding frame does (the loader's
+    lane_meta), the kernel's launches equal the schedule (2 per step), no
+    host sync inside an enqueue. Returns (detections, launches, the
+    printed summary)."""
+    import torch
+
+    from lsfa_tpu_torch.eval.driver import eval_videos_lanes, frame_bases
+
+    roidb, open_video = eval_records(lengths)
+    base, n_frames = frame_bases(roidb)
+    log, calls, metas = Lines(), [], []
+    torch.cuda.synchronize()
+    nms_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with recorded_schedule(calls), recorded_lanes(metas):
+        dets = eval_videos_lanes(model, cfg, roidb, lanes=lanes, logger=log,
+                                 open_video=open_video)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = nms_cuda.LAUNCHES
+    check_detections(name, dets, n_frames)
+    real = [(base[id(roidb[vi])] + fid) for meta in metas for vi, fid, r in meta if r]
+    padding = sum(not r for meta in metas for _, _, r in meta)
+    check(sorted(real) == list(range(n_frames)) and len(dets) == n_frames,
+          f"{name}: {len(real)} real lane frames for {n_frames} frames, {len(dets)} records")
+    check(all(c["kind"] == "frame" for c in calls) and len(calls) == len(metas),
+          f"{name}: {len(calls)} calls for {len(metas)} steps")
+    check(launches == schedule_launches(calls) == 2 * len(metas),
+          f"{name}: {launches} kernel launches, {2 * len(metas)} from the schedule")
+    syncs = sum(c["syncs"] for c in calls)
+    check(syncs == 0, f"{name}: {syncs} host syncs flagged inside an enqueue, at "
+                      f"{[(i, c['sync_sites']) for i, c in enumerate(calls) if c['syncs']]}")
+    line = (f"{name}: {len(lengths)} video(s) of {list(lengths.values())} frames over {lanes} "
+            f"lanes: {len(metas)} steps, {n_frames} real frames filed and {padding} padding "
+            f"frames dropped, {n_frames / seconds:.1f} frames/s ({seconds:.3f} s); nms kernel "
+            f"launches {launches} (2 per step); host syncs inside an enqueue {syncs}")
+    return dets, launches, line
+
+
+def lanes_phase(dev, model, cfg, nms_cuda, greedy_alive, eval_dets):
+    """Phase 37: lockstep lanes. The flagship `model` through
+    StreamingDetector(batch=B).process_gops for B in LANE_COUNTS over
+    seeded I420 streams, LANE_WINDOWS windows of 2 GOPs staged from pinned
+    memory with one in flight: frames/s, ms per window, launches (8 per
+    window), peak memory; lanes against single-lane runs at B = 4 in bf16
+    and in float32 (the same weights); the kernel's masks on the lane
+    path's real RPN inputs at B = 4; eval_videos_lanes over 3 videos on 2
+    lanes and 1 video on 4 (`lane_loop`) and against eval_videos'
+    `eval_dets`; bench --multistream 4 and run_test(lanes=2). Returns
+    (launches by path, max abs error of the masks, the runs for
+    `lanes_profiled`)."""
+    import pickle
+
+    import torch
+
+    from lsfa_tpu_torch import bench
+    from lsfa_tpu_torch.config import load_config
+    from lsfa_tpu_torch.data.loader import SyntheticPreparedVideo
+    from lsfa_tpu_torch.eval.tester import StreamingDetector
+    from lsfa_tpu_torch.experiments.lsfa_test import run_test
+    from lsfa_tpu_torch.models.lsfa import lsfa_from_config
+    from lsfa_tpu_torch.utils.profiler import device_info
+
+    card = device_info(dev)
+    name = f"{card['name']} at {card['power_limit_w']:.2f} W"
+    launches, runs, lines = {}, {}, []
+    max_err = 0.0
+    for b in LANE_COUNTS:
+        ins, _ = lane_inputs(cfg, b)
+        pinned = [torch.from_numpy(a).pin_memory() for a in ins]
+        det = StreamingDetector(model, cfg, BUCKET, batch=b)
+
+        def window(first, det=det, pinned=pinned):
+            return det.process_gops(*(t.to(dev, non_blocking=True) for t in pinned),
+                                    first=first)
+
+        det.reset()
+        [o.cpu() for o in window(True)]      # cuDNN's first use of these shapes
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        nms_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        prev = None
+        for _ in range(LANE_WINDOWS):
+            out = window(False)
+            if prev is not None:
+                [o.cpu() for o in prev]
+            prev = out
+        kd, kv, cd, cv = (o.cpu() for o in prev)
+        wall = time.perf_counter() - t0
+        n = nms_cuda.LAUNCHES
+        check(n == 8 * LANE_WINDOWS, f"lanes B={b}: {n} kernel launches, not 4 per GOP")
+        m = cfg.TEST.max_per_image
+        check(tuple(kd.shape) == (2, b, m, 6) and tuple(cd.shape) == (2, GOP - 1, b, m, 6),
+              f"lanes B={b}: detection shapes {tuple(kd.shape)}, {tuple(cd.shape)}")
+        check(bool(torch.isfinite(kd).all() and torch.isfinite(cd).all()),
+              f"lanes B={b}: non-finite detections")
+        check(bool(kv.any(dim=-1).all() and cv.any(dim=-1).all()),
+              f"lanes B={b}: a frame without valid detections")
+        peak = torch.cuda.max_memory_allocated(dev)
+        frames = LANE_WINDOWS * 2 * GOP * b
+        runs[b] = {"fps": frames / wall, "window_ms": wall / LANE_WINDOWS * 1e3,
+                   "peak_gib": peak / 2**30, "above_gib": (peak - before) / 2**30,
+                   "window": window}
+        launches[f"lanes_b{b}"] = n
+        print(f"lanes: B={b} on {name}: {frames} frames in {LANE_WINDOWS} windows of 2 GOPs: "
+              f"{runs[b]['fps']:.1f} frames/s aggregate, {runs[b]['window_ms']:.1f} ms per "
+              f"window ({runs[b]['window_ms'] / (2 * GOP * b):.2f} ms per frame); nms kernel "
+              f"launches {n} (4 per GOP); peak memory {runs[b]['peak_gib']:.2f} GiB, "
+              f"{runs[b]['above_gib']:.2f} GiB above the allocation before the windows")
+        del det, pinned
+
+    # lanes against single-lane runs, bf16 and float32, on a copy of the
+    # seeded weights conditioned so that scores do not saturate
+    runs_by = {}
+    for dtype in ("bfloat16", "float32"):
+        ccfg = load_config(str(LSFA_CONFIG), overrides={"tpu": {"compute_dtype": dtype}})
+        cmodel = lsfa_from_config(ccfg, device=dev)
+        cmodel.load_state_dict(model.state_dict())
+        calibrate_input_bn(cmodel)
+        spread_heads(cmodel, 5)
+        runs_by[dtype] = lane_runs(cmodel, ccfg)
+        del cmodel
+    compared = {"bf16 lanes against single": compare_runs(runs_by["bfloat16"]["lanes"],
+                                                          runs_by["bfloat16"]["single"]),
+                "float32 lanes against single": compare_runs(runs_by["float32"]["lanes"],
+                                                             runs_by["float32"]["single"]),
+                "bf16 single against float32 single": compare_runs(
+                    runs_by["bfloat16"]["single"], runs_by["float32"]["single"])}
+    del runs_by
+    for what, st in compared.items():
+        print(f"lanes: B=4, {what}: {stats_line(st)}; the key-feature carry within "
+              f"{st['carry']:.2e} and the last GOP's non-key head maps within {st['maps']:.2e} "
+              f"of their largest |value|")
+
+    # the kernel on the lane path's real RPN inputs at B = 4
+    ins, _ = lane_inputs(cfg, 4)
+    det = StreamingDetector(model, cfg, BUCKET, batch=4)
+    for what, (got, want, boxes) in zip(("key", "non-key"),
+                                        lane_rpn_masks(det, ins, nms_cuda, greedy_alive)):
+        check(torch.equal(got, want), f"lanes: kernel != plain on the {what} RPN input")
+        max_err = max(max_err, float((got.int() - want.int()).abs().max()))
+        lines.append(f"{what} {tuple(boxes.shape)} {int(got.sum())} alive")
+    print(f"lanes: kernel masks equal the plain version's on the lane path's real RPN inputs at "
+          f"B=4: {', '.join(lines)}")
+
+    # the loop
+    loop_dets, launches["lanes_loop_3v2"], line = lane_loop("eval_videos_lanes(lanes=2)", model,
+                                                           cfg, nms_cuda, EVAL_LENGTHS, 2)
+    print(line)
+    _, launches["lanes_loop_1v4"], line = lane_loop("eval_videos_lanes(lanes=4)", model, cfg,
+                                                    nms_cuda, {"synthetic-0": 36}, 4)
+    print(line)
+    # against eval_videos, but for the 30-frame video's partial-GOP tail (96-101),
+    # which eval_videos restarts and the lanes carry on
+    st = frame_stats([frame_diff(*loop_pair(loop_dets[k]), *loop_pair(eval_dets[k]))
+                      for k in range(96)])
+    print(f"lanes: eval_videos_lanes(lanes=2) against eval_videos over frames 0-95, bf16 "
+          f"(a measurement; bf16 at another batch size is held on the carry and the maps "
+          f"above): {stats_line(st)}")
+
+    # the launchers
+    calls = []
+    r, n = counted(nms_cuda, lambda: bench.main(["--multistream", "4", "--trials", "2",
+                                                  "--windows", "3"]))
+    tool_result("bench --multistream 4", r, card["name"])
+    check(r["metric"] == "lsfa_multistream_device_fps", f"bench --multistream: {r['metric']}")
+    check(n == 4 * 2 * (1 + 2 * 3), f"bench --multistream 4: {n} launches, schedule 56")
+    launches["bench_multistream"] = n
+    print(f"lanes: bench --multistream 4 (2 trials of 3 windows of 2 GOPs): "
+          f"{r['metric']} {r['value']:.1f} on {r['device']['name']} at "
+          f"{r['device']['power_limit_w']:.2f} W; nms kernel launches {n}")
+    with tempfile.TemporaryDirectory() as tmp:
+        lengths = {"lanes_a": 36, "lanes_b": 30}
+        dataset_path = Path(tmp) / "ILSVRC2015"
+        image_set = write_vid_tree(dataset_path, lengths, 576, 960, seed=16)
+        streams_of = {str(dataset_path / "Data" / "VID" / "mpeg4_snippets" / "val" / f"{k}.mp4"):
+                      n for k, n in lengths.items()}
+
+        def open_video(path, *args, **kw):
+            return SyntheticPreparedVideo(path, *args, num_frames=streams_of[path],
+                                          content_hw=CONTENT, im_scale=600 / 576, **kw)
+
+        tcfg = load_config(str(LSFA_CONFIG), overrides={
+            "output_path": str(Path(tmp) / "out"),
+            "dataset": {"root_path": tmp, "dataset_path": str(dataset_path),
+                        "test_image_set": image_set}})
+        with recorded_schedule(calls):
+            (mean_ap, _), n = counted(nms_cuda, lambda: run_test(
+                tcfg, lanes=2, open_video=open_video, model=model, device=dev))
+        out_dir = Path(tcfg.output_path) / tcfg.symbol / image_set
+        with open(out_dir / "detections.pkl", "rb") as f:
+            dets = pickle.load(f)
+    check_detections("run_test(lanes=2)", dets, 66)
+    check(np.isfinite(mean_ap) and 0.0 <= mean_ap <= 1.0, f"run_test(lanes=2): mAP {mean_ap}")
+    check(n == schedule_launches(calls) == 2 * 36,
+          f"run_test(lanes=2): {n} launches, schedule {schedule_launches(calls)}")
+    launches["launcher_lanes2"] = n
+    print(f"lanes: run_test(lanes=2) over 2 videos of 36 and 30 frames: 66 records, mAP@0.5 "
+          f"{mean_ap:.4f} (seeded weights); nms kernel launches {n} (2 x 36 steps)")
+
+    # the checks on the comparisons, after every number is printed
+    f32, bf16 = compared["float32 lanes against single"], compared["bf16 lanes against single"]
+    own = compared["bf16 single against float32 single"]
+    check(f32["carry"] <= LANE_F32_REL and f32["maps"] <= LANE_F32_REL
+          and f32["score"] <= LANE_F32_REL and f32["box"] <= LANE_F32_REL,
+          f"lanes: float32 lanes against single-lane runs beyond {LANE_F32_REL}: {f32}")
+    check(bf16["carry"] <= LANE_BF16_OWN * own["carry"]
+          and bf16["maps"] <= LANE_BF16_OWN * own["maps"],
+          f"lanes: bf16 lanes against single-lane runs {bf16} beyond {LANE_BF16_OWN} x the "
+          f"single-lane bf16 run's own distance to float32 {own}")
+    return launches, max_err, runs
+
+
+def loop_pair(d):
+    """A `collect_detections` dict as (dets (n, 6), valid (n,))."""
+    rows = np.concatenate([d["labels"][:, None].astype(np.float32), d["scores"][:, None],
+                           d["boxes"]], axis=1)
+    return rows, np.ones(len(rows), bool)
+
+
+def lanes_profiled(dev, runs):
+    """Phase 37's profiled part: one window of each lane count under
+    torch.profiler: its kernels (they should not grow with B), device time
+    and the device's busy share."""
+    from lsfa_tpu_torch.utils.profiler import profile_window
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for b, run in runs.items():
+            tr = profile_window(lambda: [o.cpu() for o in run["window"](False)], dev,
+                                str(Path(tmp) / f"b{b}"))
+            if tr["busy_share"] is None:
+                print(f"profiled: lanes B={b}: device time not measured: torch.profiler "
+                      f"recorded no device event")
+                continue
+            run.update(kernels=tr["kernels"], busy=tr["busy_share"], device_ms=tr["device_ms"])
+            print(f"profiled: lanes B={b}: one window of 2 GOPs ran {tr['kernels']} kernels, "
+                  f"{tr['device_ms']:.2f} ms on the device in a {tr['window_ms']:.2f} ms window, "
+                  f"busy share {tr['busy_share']:.3f}")
+
+def lanes_only():
+    """`python3 chip_smoke.py --lanes`: phase 3 at the lane shapes and
+    phase 37 alone (and its profiled part), after the build and a seeded
+    flagship's eval_videos over phase 13's records; prints the launches
+    as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs an NVIDIA card")
+    sys.path.insert(0, str(REPO))
+    from lsfa_tpu_torch.config import get_default_config
+    from lsfa_tpu_torch.eval.driver import eval_videos
+    from lsfa_tpu_torch.models.lsfa import init_params, lsfa_from_config
+    from lsfa_tpu_torch.ops import nms_cuda
+    from lsfa_tpu_torch.ops.nms import greedy_alive
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    nms_cuda.build()
+    dev = torch.device("cuda", 0)
+    # set_sync_debug_mode's one-time "prototype feature" warning matches the
+    # sync filter: take it here, as phase 4 does in the whole run
+    with warnings.catch_warnings(record=True):
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        torch.cuda.set_sync_debug_mode("default")
+    err, shapes, _ = kernel_phase(dev, lane_kernel_cases(np.random.default_rng(0)), nms_cuda,
+                                  greedy_alive)
+    cfg = get_default_config()
+    model = lsfa_from_config(cfg, device=dev)
+    init_params(model, torch.Generator(device=dev).manual_seed(0))
+    roidb, open_video = eval_records(EVAL_LENGTHS)
+    eval_dets = eval_videos(model, cfg, roidb, logger=Lines(), open_video=open_video)
+    launches, lanes_err, runs = lanes_phase(dev, model, cfg, nms_cuda, greedy_alive, eval_dets)
+    lanes_profiled(dev, runs)
+    print(json.dumps({"launches": launches, "max_abs_err": max(err, lanes_err),
+                      "shapes": shapes, "seconds": time.perf_counter() - T0}))
 
 
 def long_ladder(argv):
@@ -3694,6 +4197,8 @@ def long_ladder(argv):
 if __name__ == "__main__":
     if sys.argv[1:] == ["--tools"]:
         tools_only()
+    elif sys.argv[1:] == ["--lanes"]:
+        lanes_only()
     elif len(sys.argv) > 1:
         long_ladder(sys.argv[1:])
     else:

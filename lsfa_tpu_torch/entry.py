@@ -17,8 +17,10 @@ dryrun_multichip(n)  -> one tiny data-parallel train step over n gloo ranks
 ``__graft_entry__.py`` keys XLA's persistent compile cache by host first
 (``lsfa_tpu.utils.env.setup_cache``); the port has no such cache, and its
 one built artifact, the kernel library, is keyed by its source and flags.
-Its evaluation over the ranks shards whole videos by rank, where JAX's
-shards lockstep lanes (not carried).
+The dry run's evaluation over the ranks shards whole videos by rank, where
+JAX's shards the lockstep lanes of one detector over its mesh; the port's
+lanes split over ranks in ``eval.driver.eval_videos_lanes(over_ranks=True)``
+(``experiments/lsfa_test.py --lanes N --mesh M``).
 
 Usage:
   python -c "from lsfa_tpu_torch import entry; fn, args = entry.entry(); fn(*args)"

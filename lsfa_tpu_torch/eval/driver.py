@@ -5,8 +5,11 @@ of ``lsfa_tpu.eval.driver``.
 GOP windows at a time with the partial-GOP tail frame by frame;
 `eval_videos_timeplex` serves several streams in turn through one
 detector, swapping each stream's recurrent state in and out, with one
-decoding thread per stream; `eval_videos_rfcn` runs the single-frame
-R-FCN baseline over every frame. All return a detections mapping
+decoding thread per stream; `eval_videos_lanes` runs several streams in
+lockstep as the lanes of one detector, one frame of every lane per step
+(``eval/multistream.py``), optionally split over the ranks of a process
+group; `eval_videos_rfcn` runs the single-frame R-FCN baseline over every
+frame. All return a detections mapping
 {global frame index -> `collect_detections` dict}, the frames numbered
 across the video roidb in its order, which `evaluate_map` scores.
 
@@ -21,8 +24,9 @@ through the host image chain, with zero MV and residual.
 
 Against the JAX package: the last window of a video is not padded to the
 window length (an eager detector has no fixed window shape; the padded
-outputs were dropped there), and lockstep lane batching
-(`eval_videos_lanes`) is not carried.
+outputs were dropped there); `eval_videos_lanes` shards its lanes over
+the ranks of a ``torch.distributed`` group where JAX shards them over a
+device mesh.
 """
 
 from __future__ import annotations
@@ -41,9 +45,11 @@ from lsfa_tpu_torch.data.image import pick_bucket
 from lsfa_tpu_torch.data.loader import (
     GOP_SIZE, EvalLoader, PreparedVideo, prepared_available, read_jpeg_bgr)
 from lsfa_tpu_torch.data.prefetch import DevicePrefetcher
+from lsfa_tpu_torch.eval.multistream import eval_videos_multistream
 from lsfa_tpu_torch.eval.rfcn_tester import RFCNDetector
 from lsfa_tpu_torch.eval.tester import StreamingDetector, collect_detections
 from lsfa_tpu_torch.eval.vid_eval import vid_eval
+from lsfa_tpu_torch.parallel import mesh
 from lsfa_tpu_torch.utils.profiler import PhaseTimer
 
 
@@ -391,6 +397,63 @@ def eval_videos_timeplex(model, cfg, video_roidb, streams: int = 3,
                      None if max_frames is None else max_frames - frame_counter, open_video,
                      read_image)
     log(timer.summary())
+    save_det_cache(det_cache, detections)
+    return detections
+
+
+def eval_videos_lanes(model, cfg, video_roidb, lanes: int, det_cache: str | None = None,
+                      logger=None, max_frames: int | None = None, over_ranks: bool = False,
+                      open_video=None, read_image=None):
+    """`lanes` video streams in lockstep through one lane-batched detector
+    per bucket group (``eval.multistream.eval_videos_multistream``),
+    detections merged back to the global frame order of video_roidb: the
+    mapping `eval_videos` returns.
+
+    max_frames: the frame cap becomes a step cap (each step advances
+    every lane one frame), and a bucket group is charged steps x lanes,
+    idle-lane padding included, so later groups cannot run past the cap.
+    over_ranks: split the lanes over the ranks of the process group
+    (``parallel.mesh``; lanes must divide by the world size): each rank
+    runs its contiguous block of the global playlists and rank 0 gathers
+    the detections, so rank 0 returns the whole mapping and every other
+    rank its own lanes'. det_cache, open_video, read_image: as
+    `eval_videos`'s (rank 0 writes the cache)."""
+    log = logger.info if logger else print
+    cached = load_det_cache(det_cache, log)
+    if cached is not None:
+        return cached
+    rank, world = (mesh.rank(), mesh.world_size()) if over_ranks else (0, 1)
+    if lanes % world:
+        raise ValueError(f"lanes={lanes} must divide by the {world} ranks")
+    base, total = frame_bases(video_roidb)
+    detections = {}
+    budget = max_frames
+    for bucket, recs in group_videos_by_bucket(video_roidb, cfg, read_image).items():
+        if budget is not None and budget <= 0:
+            log(f"bucket {bucket}: skipped (max_frames reached)")
+            continue
+        log(f"bucket {bucket}: {len(recs)} videos over {lanes} lanes"
+            + (f", {lanes // world} on rank {rank} of {world}" if world > 1 else ""))
+        stats: dict = {}
+        lane_dets = eval_videos_multistream(
+            model, cfg, recs, lanes=lanes, logger=logger, bucket_hw=bucket,
+            max_steps=None if budget is None else max(1, -(-budget // lanes)), stats=stats,
+            open_video=open_video, read_image=read_image, rank=rank, world=world)
+        if budget is not None:
+            budget -= stats["steps"] * lanes
+        for (vi, fid), det in lane_dets.items():
+            detections[base[id(recs[vi])] + fid] = det
+    if world > 1:
+        import torch.distributed as dist
+
+        parts = [None] * world if rank == 0 else None
+        dist.gather_object(detections, parts, dst=0)
+        if rank != 0:
+            return detections
+        detections = {k: d for part in parts for k, d in part.items()}
+    missing = total - len(detections)
+    if missing and max_frames is None:
+        log(f"WARNING: {missing} frames produced no detections record")
     save_det_cache(det_cache, detections)
     return detections
 

@@ -7,6 +7,14 @@ non-key frames (forward_cur + detection), all enqueued without waiting for
 the device; `process_frame` runs one frame at a time by the key-frame
 schedule. Detections come back as one fixed-size (M, 6) tensor per frame;
 reading them (`collect_detections`) is the only host sync.
+
+Lockstep lanes: a detector built with `batch=B` carries B independent
+streams on the leading axis of its state, and every step runs all B lanes
+in one batch: a GOP's key step over the B key frames, then one non-key
+batch over its n*B frames (n-major: frame i of lane l is row i*B + l).
+Lanes never interact, so each lane's detections are its own stream's. The
+JAX package shards the lane axis over a device mesh; the port runs one
+detector per rank instead (``eval.driver.eval_videos_lanes``).
 """
 
 from __future__ import annotations
@@ -20,15 +28,18 @@ from lsfa_tpu_torch.eval.detector import anchors_for, detect_batch, detection_kw
 
 
 class StreamingDetector:
-    """One stream's LSFA inference with device-resident recurrent state.
+    """LSFA inference over `batch` streams in lockstep (default one), with
+    device-resident recurrent state.
 
     model: an LSFA module with its weights; it runs on its own device.
-    lt_off: every key frame takes the stream-start select, so the fresh
-    backbone feature is used verbatim (an A/B of long-term aggregation)."""
+    lt_off: every key frame of every lane takes the stream-start select, so
+    the fresh backbone feature is used verbatim (an A/B of long-term
+    aggregation)."""
 
-    def __init__(self, model, cfg, image_hw, lt_off: bool = False):
+    def __init__(self, model, cfg, image_hw, batch: int = 1, lt_off: bool = False):
         self.model = model.eval()
         self.cfg = cfg
+        self.batch = batch
         self.lt_off = lt_off
         self.device = next(model.parameters()).device
         h, w = image_hw
@@ -44,12 +55,13 @@ class StreamingDetector:
         return to_device(x, self.device, dtype)
 
     def reset(self):
-        """Start a new video stream."""
+        """Start a new video stream in every lane."""
         fh, fw = self.feat_hw
         h, w = self.image_hw
-        self.feat_key = torch.zeros((1, fh, fw, self.cfg.network.DFF_FEAT_DIM),
+        b = self.batch
+        self.feat_key = torch.zeros((b, fh, fw, self.cfg.network.DFF_FEAT_DIM),
                                     device=self.device)
-        self.data_key = torch.zeros((1, h, w, 3), device=self.device)
+        self.data_key = torch.zeros((b, h, w, 3), device=self.device)
         self.frame_id = 0
 
     def get_state(self):
@@ -68,38 +80,59 @@ class StreamingDetector:
             return 1
         return 2
 
+    def _is_first(self, boot: bool):
+        """(B,) stream-start flags: all set when `boot` or under lt_off."""
+        return torch.full((self.batch,), 1.0 if boot or self.lt_off else 0.0,
+                          device=self.device)
+
     @torch.no_grad()
     def process_gop(self, key_frame, smalls, motion_vectors, res_diffs,
                     im_info, first: bool = False):
-        """One key frame (1, H, W, 3) or I420 (1, H*3/2, W, 1), and its n
-        non-key frames: smalls (n, ...), motion_vectors (n, fh, fw, 2),
-        res_diffs (n, fh, fw, 3); im_info (3,) or (1, 3).
+        """One GOP of every lane: the key frames (B, H, W, 3) BGR or
+        (B, H*3/2, W, 1) I420, and their n non-key frames. One lane: smalls
+        (n, ...), motion_vectors (n, fh, fw, 2), res_diffs (n, fh, fw, 3),
+        im_info (3,) or (1, 3). B lanes: smalls, motion_vectors and
+        res_diffs (n, B, ...), im_info (B, 3). first: every lane starts
+        its stream.
 
-        Returns (key_dets (1, M, 6), key_valid (1, M), cur_dets (n, M, 6),
-        cur_valid (n, M)), device tensors."""
+        Returns (key_dets (B, M, 6), key_valid (B, M), cur_dets (n, M, 6),
+        cur_valid (n, M)); B lanes: cur_dets (n, B, M, 6), cur_valid
+        (n, B, M). Device tensors."""
         m = self.model
         im_info = self._put(im_info, torch.float32).reshape(-1, 3)
-        boot = first or self.lt_off
-        is_first = torch.full((1,), 1.0 if boot else 0.0, device=self.device)
-        kout = m.forward_key(self._put(key_frame), self.data_key, self.feat_key, is_first)
+        kout = m.forward_key(self._put(key_frame), self.data_key, self.feat_key,
+                             self._is_first(first))
         kd, kv = detect_batch(kout, self.anchors, im_info, **self.det_kw)
         smalls = self._put(smalls)
-        n = smalls.shape[0]
-        fk = kout["feat"].expand((n,) + tuple(kout["feat"].shape[1:]))
-        cout = m.forward_cur(smalls, fk, self._put(motion_vectors, torch.float32),
-                             self._put(res_diffs, torch.float32))
-        cd, cv = detect_batch(cout, self.anchors, im_info[0], **self.det_kw)
-        self.feat_key = kout["feat"]
+        mvs = self._put(motion_vectors, torch.float32)
+        ress = self._put(res_diffs, torch.float32)
+        feat = kout["feat"]
+        n = mvs.shape[0]
+        if mvs.dim() == 5:
+            # lanes: fold (n, B) n-major into one batch; frame i of lane l
+            # takes lane l's key feature, row i*B + l of the tiled one
+            b = mvs.shape[1]
+            cout = m.forward_cur(smalls.flatten(0, 1), feat.repeat(n, 1, 1, 1),
+                                 mvs.flatten(0, 1), ress.flatten(0, 1))
+            cd, cv = detect_batch(cout, self.anchors, im_info.expand(b, 3).repeat(n, 1),
+                                  **self.det_kw)
+            cd, cv = cd.unflatten(0, (n, b)), cv.unflatten(0, (n, b))
+        else:
+            fk = feat.expand((n,) + tuple(feat.shape[1:]))
+            cout = m.forward_cur(smalls, fk, mvs, ress)
+            cd, cv = detect_batch(cout, self.anchors, im_info[0], **self.det_kw)
+        self.feat_key = feat
         self.data_key = kout["prep"]
         self.frame_id += 1 + n
         return kd, kv, cd, cv
 
     def process_gops(self, key_frames, smalls, motion_vectors, res_diffs,
                      im_info, first: bool = False):
-        """G whole GOPs in order: key_frames (G, 1, ...); smalls, motion
-        vectors and residuals (G, n, ...). Returns (key_dets (G, 1, M, 6),
-        key_valids, cur_dets (G, n, M, 6), cur_valids) — the same as G
-        sequential process_gop calls, which is what it runs."""
+        """G whole GOPs in order: key_frames (G, B, ...); smalls, motion
+        vectors and residuals (G, n, ...), or (G, n, B, ...) for B lanes.
+        Returns (key_dets (G, B, M, 6), key_valids, cur_dets (G, n, M, 6)
+        or (G, n, B, M, 6), cur_valids) — the same as G sequential
+        process_gop calls, which is what it runs."""
         outs = [self.process_gop(key_frames[i], smalls[i], motion_vectors[i],
                                  res_diffs[i], im_info, first=first and i == 0)
                 for i in range(len(key_frames))]
@@ -109,7 +142,11 @@ class StreamingDetector:
         """A window of prepared GOP payloads, each the tuple
         (frames, smalls, mv, res, im_info) that ``PreparedVideo.gop``
         returns: only the key frame of each GOP is read at full size;
-        MV/residual run in float32."""
+        MV/residual run in float32. One lane only: lanes take
+        `process_gops` (``eval.multistream.stack_lane_gops`` lays out their
+        payloads)."""
+        if self.batch != 1:
+            raise ValueError(f"process_prepared_window serves one lane, not {self.batch}")
         key_frames = np.stack([p[0][0:1] for p in payloads])
         smalls = np.stack([p[1][1:] for p in payloads])
         mvs = np.stack([p[2][1:] for p in payloads]).astype(np.float32)
@@ -119,37 +156,41 @@ class StreamingDetector:
 
     @torch.no_grad()
     def process_frame(self, data, im_info, motion_vector=None, res_diff=None,
-                      flag: int | None = None, small=None):
-        """One frame of the stream. flag (default: `key_frame_flag` of the
-        frame count): 0 or 1 runs the key graph on data, a raw (1, H, W, 3)
-        BGR or (1, H*3/2, W, 1) I420 frame (flag 0, or any key frame under
-        lt_off, restarts the feature recurrence); 2 runs the non-key graph
-        on small, the raw 1/small_net_stride frame, made on the host as a
-        block mean of the BGR data when omitted, and on motion_vector
-        (1, fh, fw, 2) and res_diff (1, fh, fw, 3), zeros when omitted.
-        im_info: (3,) or (1, 3).
+                      flag: int | None = None, small=None, is_first=None):
+        """One frame of every lane. flag (default: `key_frame_flag` of the
+        frame count): 0 or 1 runs the key graph on data, raw (B, H, W, 3)
+        BGR or (B, H*3/2, W, 1) I420 frames (flag 0, or any key frame under
+        lt_off, restarts the feature recurrence of every lane; is_first,
+        (B,) per-lane flags, restarts the lanes where it is > 0 in its
+        place); 2 runs the non-key graph on small, the raw
+        1/small_net_stride frames, made on the host as a block mean of the
+        BGR data when omitted, and on motion_vector (B, fh, fw, 2) and
+        res_diff (B, fh, fw, 3), zeros when omitted. im_info: (3,) for
+        every lane, or (B, 3).
 
-        Returns (dets (1, M, 6), valid (1, M)), device tensors."""
+        Returns (dets (B, M, 6), valid (B, M)), device tensors."""
         if flag is None:
             flag = self.key_frame_flag(self.frame_id)
         m = self.model
+        b = self.batch
         im_info = self._put(im_info, torch.float32).reshape(-1, 3)
         if flag in (0, 1):
-            boot = flag == 0 or self.lt_off
-            is_first = torch.full((1,), 1.0 if boot else 0.0, device=self.device)
-            out = m.forward_key(self._put(data), self.data_key, self.feat_key, is_first)
+            if is_first is None or self.lt_off:
+                is_first = self._is_first(flag == 0)
+            out = m.forward_key(self._put(data), self.data_key, self.feat_key,
+                                self._put(is_first, torch.float32))
             self.feat_key = out["feat"]
             self.data_key = out["prep"]
         else:
             if small is None:
                 s = small_pool_factor(self.cfg.network.small_net_stride)
                 x = torch.as_tensor(data).float()
-                b, h, w = x.shape[0], x.shape[1] // s, x.shape[2] // s
-                small = x[:, :h * s, :w * s].reshape(b, h, s, w, s, 3).mean(dim=(2, 4))
+                h, w = x.shape[1] // s, x.shape[2] // s
+                small = x[:, :h * s, :w * s].reshape(x.shape[0], h, s, w, s, 3).mean(dim=(2, 4))
             fh, fw = self.feat_hw
-            mv = (torch.zeros((1, fh, fw, 2), device=self.device) if motion_vector is None
+            mv = (torch.zeros((b, fh, fw, 2), device=self.device) if motion_vector is None
                   else self._put(motion_vector, torch.float32))
-            rd = (torch.zeros((1, fh, fw, 3), device=self.device) if res_diff is None
+            rd = (torch.zeros((b, fh, fw, 3), device=self.device) if res_diff is None
                   else self._put(res_diff, torch.float32))
             out = m.forward_cur(self._put(small), self.feat_key, mv, rd)
         self.frame_id += 1

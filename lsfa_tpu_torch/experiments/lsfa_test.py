@@ -5,7 +5,10 @@ Usage:
   python -m lsfa_tpu_torch.experiments.lsfa_test \
       --cfg lsfa_tpu_torch/configs/lsfa_resnet101_vid.json \
       [--ckpt <dir>] [--ignore-cache] [--max-frames N] [--streams N] \
-      [--thresh T] [--vis N] [--device cpu]
+      [--lanes N [--mesh M] [--decode-workers N]] [--thresh T] [--vis N] \
+      [--device cpu]
+  torchrun --nproc-per-node M -m lsfa_tpu_torch.experiments.lsfa_test \
+      --cfg ... --lanes N --mesh M
 
 It loads TEST.test_epoch (0: the latest) from the checkpoint directory
 (``--ckpt``, else the train run's), builds one record per video of
@@ -19,7 +22,10 @@ annotation (JAX reads them from the stream, or from the first JPEG with
 PIL); ``open_video`` and ``read_image`` are passed through to the loops
 (see ``eval/driver.py``) and ``--vis`` reads its frames with
 ``read_image``; ``--vis`` writes PNG (``utils.vis.write_png``), where JAX
-writes JPEG; lockstep lanes (``--lanes``, ``--mesh``) are not carried.
+writes JPEG; ``--mesh M`` splits the lanes over M ranks of a
+``torch.distributed`` group (one process per card, as torchrun starts
+them; rank 0 prints the mAP), where JAX shards them over M devices of one
+process.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import logging
 import os
 
 import numpy as np
+import torch
 
 
 def resolve_train_ckpt_dir(cfg, out_dir: str) -> str | None:
@@ -62,13 +69,19 @@ def load_model(cfg, ckpt_dir=None, out_dir: str = "", logger=None, device=None):
 
 def run_test(cfg, ckpt_dir=None, ignore_cache=False, max_frames=None,
              vis_frames: int = 0, thresh: float | None = None, streams: int = 0,
-             open_video=None, device=None, read_image=None, model=None):
+             open_video=None, device=None, read_image=None, model=None, lanes: int = 1,
+             mesh_shape: int = 0):
     """Evaluate the config's model over dataset.test_image_set. Returns
     (mAP, per-class AP) of ``eval.driver.evaluate_map``.
 
     streams > 1 time-multiplexes that many streams through one detector
-    (``eval_videos_timeplex``); an ``rfcn*`` symbol runs the single-frame
-    R-FCN over every frame (``eval_videos_rfcn``). thresh overrides
+    (``eval_videos_timeplex``); else lanes > 1 runs that many streams in
+    lockstep as the lanes of one detector (``eval_videos_lanes``), and
+    mesh_shape > 0 splits those lanes over the ranks of the process group,
+    which must have mesh_shape ranks (lanes % mesh_shape == 0): rank 0
+    returns the result, every other rank None. An ``rfcn*`` symbol runs
+    the single-frame R-FCN over every frame (``eval_videos_rfcn``). thresh
+    overrides
     TEST.SCORE_THRESH. open_video, read_image: passed to the loops (a
     callable with ``PreparedVideo``'s signature, None opening the videos
     with the native decoder; a reader of the frames past a stream's end,
@@ -79,10 +92,17 @@ def run_test(cfg, ckpt_dir=None, ignore_cache=False, max_frames=None,
     (`write_vis`)."""
     from lsfa_tpu_torch.data.dataset import ImageNetVID
     from lsfa_tpu_torch.eval.driver import (
-        eval_videos, eval_videos_rfcn, eval_videos_timeplex, evaluate_map)
+        eval_videos, eval_videos_lanes, eval_videos_rfcn, eval_videos_timeplex, evaluate_map)
+    from lsfa_tpu_torch.parallel import mesh
     from lsfa_tpu_torch.train.driver import is_rfcn
     from lsfa_tpu_torch.utils.logger import create_logger
 
+    if mesh_shape:
+        if mesh.world_size() != mesh_shape:
+            raise ValueError(f"--mesh {mesh_shape} needs a process group of {mesh_shape} ranks, "
+                             f"not {mesh.world_size()}")
+        if lanes % mesh_shape:
+            raise ValueError(f"lanes={lanes} must divide by mesh size {mesh_shape}")
     logger, out_dir = create_logger(cfg.output_path, cfg.symbol, cfg.dataset.test_image_set)
     if thresh is not None:
         cfg.TEST.SCORE_THRESH = float(thresh)
@@ -113,6 +133,11 @@ def run_test(cfg, ckpt_dir=None, ignore_cache=False, max_frames=None,
         dets = eval_videos_rfcn(model, cfg, video_roidb, **kw)
     elif streams > 1:
         dets = eval_videos_timeplex(model, cfg, video_roidb, streams=streams, **kw)
+    elif lanes > 1:
+        dets = eval_videos_lanes(model, cfg, video_roidb, lanes=lanes,
+                                 over_ranks=mesh_shape > 0, **kw)
+        if mesh.rank() != 0:
+            return None
     else:
         dets = eval_videos(model, cfg, video_roidb, **kw)
     if vis_frames:
@@ -163,6 +188,12 @@ def main(argv=None):
     ap.add_argument("--max-frames", type=int, default=None)
     ap.add_argument("--streams", type=int, default=0,
                     help="time-multiplexed video streams through one detector")
+    ap.add_argument("--lanes", type=int, default=1,
+                    help="video streams in lockstep as the lanes of one detector")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="split the lanes over this many ranks (one process each)")
+    ap.add_argument("--decode-workers", type=int, default=None,
+                    help="lane-parallel decode threads (default cfg.tpu.decode_workers)")
     ap.add_argument("--vis", type=int, default=0, metavar="N",
                     help="write the first N annotated frames to <out_dir>/vis")
     ap.add_argument("--thresh", type=float, default=None,
@@ -171,10 +202,21 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from lsfa_tpu_torch.config import load_config
+    from lsfa_tpu_torch.parallel import mesh
 
-    run_test(load_config(args.cfg), ckpt_dir=args.ckpt, ignore_cache=args.ignore_cache,
-             max_frames=args.max_frames, vis_frames=args.vis, thresh=args.thresh,
-             streams=args.streams, device=args.device)
+    cfg = load_config(args.cfg)
+    if args.decode_workers is not None:
+        cfg.tpu.decode_workers = args.decode_workers
+    device = args.device
+    if args.mesh and not mesh.active():
+        device = mesh.initialize_distributed(device=device)      # torchrun's env://
+    try:
+        run_test(cfg, ckpt_dir=args.ckpt, ignore_cache=args.ignore_cache,
+                 max_frames=args.max_frames, vis_frames=args.vis, thresh=args.thresh,
+                 streams=args.streams, device=device, lanes=args.lanes, mesh_shape=args.mesh)
+    finally:
+        if args.mesh:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":
