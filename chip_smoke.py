@@ -253,10 +253,26 @@ Phases, each printing one line before the last:
      over a VID tree of 36 and 30 frames (66 records, 72 launches). Its
      profiled part (one window of each B under torch.profiler: kernels
      per window, device time, busy share) runs after phase 36's.
+ 38. tensor-parallel serving (parallel.tensor_parallel): (a) a copy of the
+     flagship of phase 4 sharded by shard_params at mesh (1, 1) under NCCL
+     at world size 1 streams 3 GOPs through StreamingDetector, in turns
+     with the unsharded model (unsharded, sharded, unsharded, sharded):
+     labels and valid rows equal to the unsharded model's, scores and
+     boxes within 1e-5 (the maxima printed), 4 kernel launches per GOP,
+     ms per GOP of each; the kernel's masks equal to the plain version's
+     on the sharded path's real (1, 2048) and (11, 2048) RPN inputs;
+     (b) two ranks sharing the card in a gloo group (NCCL refuses two
+     ranks on one device) at mesh (1, 2) through
+     tools.dryrun_multihost.run_tp: the flagship's forward_key and
+     forward_cur (2 frames) at full width on conditioned weights, float32
+     maps within 1e-4 of each one's largest |value| of the replicated
+     run's, bf16 within 1.5 x the replicated bf16 run's own distance to
+     its float32 run, every rank's shards its slices of the weights.
 `python3 chip_smoke.py --ladder STEPS --out DIR` runs phase 34 alone with
 a real step budget (`long_ladder`); `python3 chip_smoke.py --tools` runs
 phase 36 alone (`tools_only`); `python3 chip_smoke.py --lanes` runs phase
-3 at the lane shapes and phase 37 alone (`lanes_only`).
+3 at the lane shapes and phase 37 alone (`lanes_only`); `python3 chip_smoke.py
+--tp` runs phase 38 alone (`tp_only`).
 Then the script's seconds, one JSON line for the kernels and, last, the
 result line. Any failed phase exits non-zero before the result line is
 printed.
@@ -3649,6 +3665,11 @@ def main():
     max_err = max(max_err, lanes_err)
     print(f"phases 1-37: {time.perf_counter() - T0:.1f} s since the script started")
 
+    # 38: tensor-parallel serving of the head stack
+    tensor_launches, tensor_err = tp_phase(dev, model, cfg, nms_cuda, greedy_alive)
+    max_err = max(max_err, tensor_err)
+    print(f"phases 1-38: {time.perf_counter() - T0:.1f} s since the script started")
+
     # 27. launches and device time by torch.profiler, last: after a profiled
     # window the host's launches stay slower, which would bias phases 3-26
     rfcn_account(dev)
@@ -3692,7 +3713,8 @@ def main():
                      + hobot_launches + gop_launches + sum(demo_launches.values())
                      + overfit_launches + bn_ar_launches + sum(bf16_launches.values())
                      + jpeg_launches + sum(ladder_launches.values()) + entry_launches
-                     + sum(tools_launches.values()) + sum(lanes_launches.values())),
+                     + sum(tools_launches.values()) + sum(lanes_launches.values())
+                     + sum(tensor_launches.values())),
         "max_abs_err": max_err,
         "ms": rpn["us"] / 1e3, "plain_ms": rpn["plain_us"] / 1e3,
         "bound_ms": rpn["bound_us"] / 1e3, "bound_by": rpn["bound_by"], "library_ms": None,
@@ -3704,7 +3726,8 @@ def main():
                              "batch_gop": gop_launches, **demo_launches,
                              "overfit_smoke": overfit_launches, "bn_allreduce": bn_ar_launches,
                              **bf16_launches, "jpeg_eval": jpeg_launches, **ladder_launches,
-                             "entry": entry_launches, **tools_launches, **lanes_launches},
+                             "entry": entry_launches, **tools_launches, **lanes_launches,
+                             **tensor_launches},
         "shapes": shapes}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -4151,6 +4174,204 @@ def lanes_only():
                       "shapes": shapes, "seconds": time.perf_counter() - T0}))
 
 
+# phase 38: tensor-parallel serving. The detections of the flagship
+# sharded at (1, 1) against the unsharded model's: labels and valid rows
+# equal, scores (absolute) and boxes (over the frame's largest coordinate)
+# within TP_DET_TOL; two ranks on the card at (1, 2): float32 maps within
+# TP_F32_REL of each one's largest |value| of the replicated run's, bf16
+# within LANE_BF16_OWN times the replicated bf16 run's own distance to its
+# float32 run
+TP_DET_TOL = 1e-5
+TP_F32_REL = 1e-4
+
+
+def tp_stream(det, payloads):
+    """`det` over the GOPs `payloads` from a fresh stream: (the outputs on
+    the host, ms per GOP after the first)."""
+    import torch
+
+    per_gop, outs = [], []
+    for g, p in enumerate(payloads):
+        t0 = time.perf_counter()
+        out = det.process_prepared_window([p], first=(g == 0))
+        torch.cuda.synchronize()
+        if g > 0:
+            per_gop.append((time.perf_counter() - t0) * 1e3)
+        outs.append([o.cpu() for o in out])
+    return outs, statistics.mean(per_gop)
+
+
+def tp_two_ranks(dev, model, cfg, card):
+    """Phase 38's part (b): the flagship's forward_key (is_first 0, after
+    a key frame at is_first 1) and forward_cur over 2 non-key frames at
+    full width, float32 and bf16, with two ranks sharing the card in a
+    gloo group at mesh (1, 2) (``dryrun_multihost.run_tp``), against the
+    replicated run in this process. Returns the report."""
+    import torch
+
+    from lsfa_tpu_torch.tools import dryrun_multihost as dry
+
+    cmodel = lsfa_from_config_like(model, cfg, dev)
+    calibrate_input_bn(cmodel)
+    spread_heads(cmodel, 38)
+    gops = synth_gops(cfg, 2, 38)
+    t = torch.from_numpy
+    with torch.no_grad():
+        first = cmodel.forward_key(t(gops[0][0][0:1]).to(dev),
+                                   torch.zeros((1,) + BUCKET + (3,), device=dev),
+                                   torch.zeros((1, BUCKET[0] // 16, BUCKET[1] // 16,
+                                                cfg.network.DFF_FEAT_DIM), device=dev),
+                                   torch.ones(1, device=dev))
+    frames, smalls, mvs, ress, _ = gops[1]
+    key = (t(frames[0:1]), first["prep"].cpu(), first["feat"].cpu(), torch.zeros(1))
+    cur = (t(smalls[1:3]), first["feat"].cpu().expand(2, -1, -1, -1).contiguous(),
+           t(mvs[1:3].astype(np.float32)), t(ress[1:3].astype(np.float32)))
+    job = {"cfg_path": None, "overrides": {}, "device": str(dev),
+           "state": {k: v.cpu() for k, v in cmodel.state_dict().items()},
+           "dtypes": ("float32", "bfloat16"), "meshes": ((1, 2),), "key": [key], "cur": cur,
+           "grad": False, "stream": None, "threads": 2}
+    del cmodel, first
+    t0 = time.perf_counter()
+    ranks = dry.run_tp(job, 2)
+    ranks_s = time.perf_counter() - t0
+    ref = dry.tp_reference(job)
+    report = dry.tp_report(ranks, ref, job)
+    own = max(dry.rel_err(b[k], f[k]) for b, f in zip(
+        ref["bfloat16"]["key"] + [ref["bfloat16"]["cur"]],
+        ref["float32"]["key"] + [ref["float32"]["cur"]]) for k in f)
+    f32, bf16 = report["1x2/float32"], report["1x2/bfloat16"]
+    print(f"tensor parallel: mesh (1, 2), two ranks in a gloo group on one {card}: the "
+          f"flagship's forward_key and forward_cur (2 frames) at {BUCKET[0]}x{BUCKET[1]}: "
+          f"float32 maps within {f32['maps_rel_err']:.2e} of their largest |value| of the "
+          f"replicated run's (limit {TP_F32_REL}); bf16 within {bf16['maps_rel_err']:.2e}, the "
+          f"replicated bf16 run within {own:.2e} of float32 (limit {LANE_BF16_OWN} x); every "
+          f"rank's shards the slices of the full weights: "
+          f"{f32['shards_are_slices'] and bf16['shards_are_slices']}; the ranks took "
+          f"{ranks_s:.1f} s, start-up included")
+    check(f32["shards_are_slices"] and bf16["shards_are_slices"],
+          "tensor parallel: a rank's shards are not its slices of the weights")
+    check(f32["maps_rel_err"] <= TP_F32_REL,
+          f"tensor parallel: float32 maps at (1, 2) {f32['maps_rel_err']} from the replicated run")
+    check(bf16["maps_rel_err"] <= LANE_BF16_OWN * own,
+          f"tensor parallel: bf16 maps at (1, 2) {bf16['maps_rel_err']} from the replicated run, "
+          f"beyond {LANE_BF16_OWN} x its own bf16 rounding {own}")
+    return {"f32": f32["maps_rel_err"], "bf16": bf16["maps_rel_err"], "bf16_own": own}
+
+
+def lsfa_from_config_like(model, cfg, dev):
+    """A new flagship of `cfg` on `dev` holding `model`'s weights."""
+    from lsfa_tpu_torch.models.lsfa import lsfa_from_config
+
+    copy = lsfa_from_config(cfg, device=dev)
+    copy.load_state_dict(model.state_dict())
+    return copy.eval()
+
+
+def tp_phase(dev, model, cfg, nms_cuda, greedy_alive):
+    """Phase 38: tensor-parallel serving. (a) The flagship `model`'s
+    weights in a copy sharded by shard_params at mesh (1, 1) under NCCL at
+    world size 1: 3 GOPs through StreamingDetector.process_prepared_window
+    twice, in turns with the unsharded model (unsharded, sharded,
+    unsharded, sharded), detections against the unsharded model's, 4
+    launches per GOP, ms per GOP of each; the kernel's masks on the TP
+    path's (1, 2048) and (11, 2048) RPN inputs. (b) `tp_two_ranks`.
+    Returns ({path: kernel launches}, max abs error of the masks)."""
+    import socket
+
+    import torch
+
+    from lsfa_tpu_torch.eval.tester import StreamingDetector
+    from lsfa_tpu_torch.parallel import make_tp_mesh, mesh, shard_params, tensor_parallel_specs
+    from lsfa_tpu_torch.parallel.tensor_parallel import is_sharded
+    from lsfa_tpu_torch.utils.profiler import device_info
+
+    info = device_info(dev)
+    card = f"{info['name']} at {info['power_limit_w']:.2f} W"
+    payloads = synth_gops(cfg, 3, 38)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    launches, max_err = {}, 0.0
+    check(mesh.initialize_distributed(f"127.0.0.1:{port}", 1, 0) == torch.device("cuda", 0),
+          "tensor parallel: the rank's device")
+    try:
+        check(torch.distributed.get_backend() == "nccl", "tensor parallel: the backend")
+        dmesh = make_tp_mesh(1)
+        check(dmesh.device_type == "cuda" and tuple(dmesh.shape) == (1, 1),
+              f"tensor parallel: mesh {dmesh}")
+        tp_model = shard_params(dmesh, lsfa_from_config_like(model, cfg, dev),
+                                tensor_parallel_specs(model))
+        check(is_sharded(tp_model), "tensor parallel: shard_params swapped no module")
+        plain_det = StreamingDetector(model, cfg, BUCKET)
+        tp_det = StreamingDetector(tp_model, cfg, BUCKET)
+        runs, counts = {}, []
+        for name, det in (("plain", plain_det), ("tp", tp_det), ("plain2", plain_det),
+                          ("tp2", tp_det)):
+            nms_cuda.LAUNCHES = 0
+            runs[name] = tp_stream(det, payloads)
+            if name.startswith("tp"):
+                counts.append(nms_cuda.LAUNCHES)
+        (want, plain_ms), (got, tp_ms) = runs["plain"], runs["tp"]
+        plain_ms2, tp_ms2 = runs["plain2"][1], runs["tp2"][1]
+        check(counts == [4 * len(payloads)] * 2,
+              f"tensor parallel: {counts} kernel launches in two passes over {len(payloads)} "
+              f"GOPs, not 4 per GOP")
+        n2 = launches["tp_stream"] = sum(counts)
+        diffs = []
+        for (kd, kv, cd, cv), (wkd, wkv, wcd, wcv) in zip(got, want):
+            diffs.append(frame_diff(kd[0, 0], kv[0, 0], wkd[0, 0], wkv[0, 0]))
+            diffs += [frame_diff(cd[0, i], cv[0, i], wcd[0, i], wcv[0, i])
+                      for i in range(cd.shape[1])]
+            check(bool(kv.any() and cv.any()), "tensor parallel: a GOP without detections")
+        st = frame_stats(diffs)
+        print(f"tensor parallel: mesh (1, 1) under NCCL, the flagship sharded by shard_params "
+              f"against the unsharded model over 3 GOPs on {card}: {stats_line(st)}; "
+              f"{tp_ms:.1f} and {tp_ms2:.1f} ms per GOP sharded, {plain_ms:.1f} and "
+              f"{plain_ms2:.1f} unsharded (in turns: unsharded, sharded, unsharded, sharded; "
+              f"GOPs 2-3 of each pass); nms kernel launches {n2} (4 per GOP)")
+        check(st["rows_differ"] == 0 and st["score"] <= TP_DET_TOL and st["box"] <= TP_DET_TOL,
+              f"tensor parallel: (1, 1) detections against the unsharded model's: {st}")
+        ins, _ = lane_inputs(cfg, 1)
+        lines = []
+        for what, (k, w, boxes) in zip(("key", "non-key"), lane_rpn_masks(
+                StreamingDetector(tp_model, cfg, BUCKET), ins, nms_cuda, greedy_alive)):
+            check(torch.equal(k, w), f"tensor parallel: kernel != plain on the {what} RPN input")
+            max_err = max(max_err, float((k.int() - w.int()).abs().max()))
+            lines.append(f"{what} {tuple(boxes.shape)} {int(k.sum())} alive")
+        print(f"tensor parallel: kernel masks equal the plain version's on the (1, 1) path's "
+              f"real RPN inputs: {', '.join(lines)}")
+        del tp_model, tp_det, plain_det
+    finally:
+        torch.distributed.destroy_process_group()
+    tp_two_ranks(dev, model, cfg, card)
+    return launches, max_err
+
+
+def tp_only():
+    """`python3 chip_smoke.py --tp`: phase 38 alone, after the build and a
+    seeded flagship; prints the launches as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs an NVIDIA card")
+    sys.path.insert(0, str(REPO))
+    from lsfa_tpu_torch.config import get_default_config
+    from lsfa_tpu_torch.models.lsfa import init_params, lsfa_from_config
+    from lsfa_tpu_torch.ops import nms_cuda
+    from lsfa_tpu_torch.ops.nms import greedy_alive
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    nms_cuda.build()
+    dev = torch.device("cuda", 0)
+    cfg = get_default_config()
+    model = lsfa_from_config(cfg, device=dev)
+    init_params(model, torch.Generator(device=dev).manual_seed(0))
+    launches, err = tp_phase(dev, model.eval(), cfg, nms_cuda, greedy_alive)
+    print(json.dumps({"launches": launches, "max_abs_err": err,
+                      "seconds": time.perf_counter() - T0}))
+
+
 def long_ladder(argv):
     """The ladder's two card rungs with a real step budget, outside the
     smoke run: phase 34 at the given sizes, its reports, curves and
@@ -4199,6 +4420,8 @@ if __name__ == "__main__":
         tools_only()
     elif sys.argv[1:] == ["--lanes"]:
         lanes_only()
+    elif sys.argv[1:] == ["--tp"]:
+        tp_only()
     elif len(sys.argv) > 1:
         long_ladder(sys.argv[1:])
     else:

@@ -18,8 +18,10 @@ The train step calls ``model.forward_train``, not ``model(...)``, so a
 reduces the gradients itself, after ``backward()``.
 
 With no process group (one process) every helper is the identity; with a
-group of one rank the collectives run. The tensor-parallel helpers of the
-JAX package are not carried: the model fits one device.
+group of one rank the collectives run. They reduce over the whole world:
+under a ("data", "model") mesh they would sum over the model ranks too,
+so training under tensor parallelism is not wired up. The JAX package's
+tensor-parallel helpers are in ``parallel/tensor_parallel.py``.
 """
 
 from __future__ import annotations

@@ -17,6 +17,15 @@ Prints one JSON line (the ranks' losses and parameter checksums, the
 largest differences) and writes it to --out when given. Exits 0 when every
 check holds.
 
+The tensor-parallel counterpart (`run_tp`, no command line: the tests and
+``chip_smoke.py`` phase 38 call it): ranks in one gloo group shard an
+LSFA's head stack (``parallel.tensor_parallel``) over ("data", "model")
+meshes and run forward_key, forward_cur over a batch split on "data",
+the gradient of a seeded functional of forward_key's maps or
+StreamingDetector over GOPs; `tp_reference` runs the unsharded model in
+this process, and `tp_report` holds every rank's maps and gradients
+against it and its shards against the full weights.
+
 Usage: python -m lsfa_tpu_torch.tools.dryrun_multihost [--nproc N] [--out FILE]
 """
 
@@ -173,6 +182,256 @@ def run(nproc: int = 2, names=tuple(VARIANTS)):
                            **{f"param_checksum_{n}": checksum(single[n][1]) for n in names}},
     })
     return report, ranks, single
+
+
+# ----------------------------------------------------------------------
+# tensor parallelism of the head stack
+
+TP_HW = (64, 96)
+# the tiny LSFA of the JAX package's tensor-parallel test: ResNet-18, feat
+# 64, no DCN, 5 classes, float32
+TP_OVERRIDES = {"network": {"add_dcn": False}, "dataset": {"NUM_CLASSES": 5}}
+TP_REL = 1e-5
+# a replicated parameter whose gradient reaches it through the gather
+TP_GRAD_REPLICATED = "backbone.conv0.weight"
+
+
+def tp_model(job, dtype):
+    """(config, model) of a `run_tp` job at compute dtype `dtype`, its
+    weights loaded, in eval mode on the job's device."""
+    from lsfa_tpu_torch.config import load_config
+    from lsfa_tpu_torch.models.lsfa import lsfa_from_config
+
+    ov = job["overrides"]
+    cfg = load_config(job["cfg_path"], overrides={
+        **ov, "tpu": {**ov.get("tpu", {}), "compute_dtype": dtype}})
+    model = lsfa_from_config(cfg, device=job["device"])
+    model.load_state_dict(job["state"], strict=True)
+    return cfg, model.eval()
+
+
+def tp_probe(shape, seed, device):
+    """The seeded weights of one map in the functional `tp_outputs`
+    differentiates."""
+    import torch
+
+    return torch.randn(shape, generator=torch.Generator().manual_seed(seed)).to(device)
+
+
+def tp_outputs(model, cfg, job, data_rank=0, n_data=1):
+    """What one rank computes with `model` (sharded or not) on the job's
+    inputs, on the host in float32: "key", forward_key's maps for each
+    input; "cur", forward_cur's on the rank's rows of the global batch
+    (`mesh.shard_batch` over n_data); "shards", the parameters of the five
+    head-stack modules; with job["grad"], "grads": the gradients of those
+    parameters and of TP_GRAD_REPLICATED, of the sum of forward_key's maps
+    on the first input weighted by `tp_probe`; with job["stream"],
+    "stream": StreamingDetector's detections over its payloads."""
+    import torch
+
+    from lsfa_tpu_torch.eval.tester import StreamingDetector
+    from lsfa_tpu_torch.parallel.mesh import shard_batch
+    from lsfa_tpu_torch.parallel.tensor_parallel import TP_IN_MODULES, TP_OUT_MODULES
+
+    dev = next(model.parameters()).device
+
+    def host(maps):
+        return {k: v.detach().float().cpu() for k, v in maps.items()}
+
+    def key(args):
+        return model.forward_key(*(a.to(dev) for a in args))
+
+    heads = TP_OUT_MODULES + TP_IN_MODULES
+    out = {"shards": {n: p.detach().float().cpu() for n, p in model.named_parameters()
+                      if n.split(".")[0] in heads}}
+    with torch.no_grad():
+        out["key"] = [host(key(args)) for args in job["key"]]
+        if job.get("cur") is not None:
+            names = ("small", "feat_key", "motion_vector", "res_diff")
+            rows = shard_batch(dict(zip(names, job["cur"])), data_rank, n_data)
+            out["cur"] = host(model.forward_cur(*(rows[k].to(dev) for k in names)))
+    if job.get("grad"):
+        model.zero_grad(set_to_none=True)
+        maps = key(job["key"][0])
+        loss = sum((maps[k].float() * tp_probe(maps[k].shape, i, dev)).sum()
+                   for i, k in enumerate(sorted(maps)))
+        loss.backward()
+        out["grads"] = {n: p.grad.float().cpu() for n, p in model.named_parameters()
+                        if n in out["shards"] or n == TP_GRAD_REPLICATED}
+        model.zero_grad(set_to_none=True)
+    if job.get("stream") is not None:
+        det = StreamingDetector(model, cfg, job["stream"]["hw"])
+        payloads = [tuple(a.numpy() for a in p) for p in job["stream"]["payloads"]]
+        with torch.no_grad():
+            out["stream"] = [o.cpu() for o in det.process_prepared_window(payloads, first=True)]
+    return out
+
+
+def tp_key(shape, dtype) -> str:
+    return f"{shape[0]}x{shape[1]}/{dtype}"
+
+
+def tp_worker(rank: int, world: int, port: int, job_path: str, out_dir: str):
+    """One rank of `run_tp`: for each mesh of the job and each compute
+    dtype, the model sharded over "model" (`shard_params`) and its
+    `tp_outputs` on the rank's "data" rows, saved to out_dir."""
+    import torch
+
+    from lsfa_tpu_torch.parallel import mesh
+    from lsfa_tpu_torch.parallel.tensor_parallel import (make_tp_mesh, shard_params,
+                                                         tensor_parallel_specs)
+
+    job = torch.load(job_path, weights_only=True)
+    torch.set_num_threads(job["threads"])
+    # gloo on either device: NCCL refuses two ranks on one card
+    mesh.initialize_distributed(f"127.0.0.1:{port}", world, rank, device="cpu")
+    try:
+        out = {}
+        for n_data, n_model in job["meshes"]:
+            dm = make_tp_mesh(n_model, n_data)
+            coord = (dm.get_local_rank("data"), dm.get_local_rank("model"))
+            for dtype in job["dtypes"]:
+                cfg, model = tp_model(job, dtype)
+                shard_params(dm, model, tensor_parallel_specs(model))
+                out[tp_key((n_data, n_model), dtype)] = {
+                    "coord": coord, **tp_outputs(model, cfg, job, coord[0], n_data)}
+                del model
+        torch.save(out, os.path.join(out_dir, f"tp_rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run_tp(job: dict, nproc: int) -> list:
+    """Spawn `nproc` ranks of `tp_worker` on `job` and return each rank's
+    {tp_key(mesh, dtype): {"coord": (data, model), **tp_outputs}}.
+
+    job: "cfg_path" (None: the defaults) and "overrides", the port's
+    config; "state", the float32 state dict; "device"; "dtypes", the
+    compute dtypes; "meshes", (n_data, n_model) shapes of nproc ranks;
+    "key", forward_key argument tuples; "cur", forward_cur's arguments (a
+    global batch) or None; "grad"; "stream", {"payloads", "hw"} or None;
+    "threads", torch threads per rank. Every array is a CPU tensor."""
+    import torch
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        job_path = os.path.join(tmp, "job.pt")
+        torch.save(job, job_path)
+        mp.spawn(tp_worker, args=(nproc, free_port(), job_path, tmp), nprocs=nproc, join=True)
+        return [torch.load(os.path.join(tmp, f"tp_rank{r}.pt"), weights_only=True)
+                for r in range(nproc)]
+
+
+def tp_reference(job: dict) -> dict:
+    """{dtype: tp_outputs} of the unsharded model on the job, in this
+    process."""
+    out = {}
+    for dtype in job["dtypes"]:
+        cfg, model = tp_model(job, dtype)
+        out[dtype] = tp_outputs(model, cfg, job)
+    return out
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over the largest |want|."""
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+def expected_shard(state, name, coord_model, n_model):
+    """The slice of the full weight `name` that model rank `coord_model`
+    of n_model holds."""
+    from lsfa_tpu_torch.parallel.tensor_parallel import TP_OUT_MODULES
+
+    w = state[name]
+    if name.split(".")[0] in TP_OUT_MODULES:
+        c = w.shape[0] // n_model
+        return w[coord_model * c:(coord_model + 1) * c]
+    if w.ndim == 4:
+        c = w.shape[1] // n_model
+        return w[:, coord_model * c:(coord_model + 1) * c]
+    return w
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and bool(torch.equal(a, b.to(a.dtype)))
+
+
+def tp_report(ranks, ref, job) -> dict:
+    """The ranks of `run_tp` against `tp_reference`: for each mesh and
+    dtype, the largest error of the maps (key and cur) and of the
+    gradients over each one's largest |value|, and whether every shard
+    is the rank's slice of the job's weights. "ok" when every shard is
+    and every error is within TP_REL."""
+    report, ok = {}, True
+    for k in ranks[0]:
+        dtype = k.split("/")[1]
+        n_data, n_model = (int(x) for x in k.split("/")[0].split("x"))
+        want = ref[dtype]
+        maps = grads = 0.0
+        shards = True
+        for r in ranks:
+            got = r[k]
+            d, m = got["coord"]
+            for g, w in zip(got["key"], want["key"]):
+                maps = max(maps, *(rel_err(g[n], w[n]) for n in w))
+            if "cur" in got:
+                b = next(iter(want["cur"].values())).shape[0] // n_data
+                maps = max(maps, *(rel_err(got["cur"][n], w[d * b:(d + 1) * b])
+                                   for n, w in want["cur"].items()))
+            shards = shards and all(
+                torch_equal(s, expected_shard(job["state"], n, m, n_model))
+                for n, s in got["shards"].items())
+            for n, g in got.get("grads", {}).items():
+                full = want["grads"][n]
+                part = full if n not in got["shards"] else expected_shard(
+                    {n: full}, n, m, n_model)
+                grads = max(grads, rel_err(g, part))
+        report[k] = {"maps_rel_err": maps, "grads_rel_err": grads, "shards_are_slices": shards}
+        ok = ok and shards and maps <= TP_REL and grads <= TP_REL
+    report["ok"] = bool(ok)
+    return report
+
+
+def tiny_tp_job(meshes, grad=True, stream_gops=0) -> dict:
+    """A `run_tp` job on the tiny LSFA (TP_OVERRIDES) on the CPU: weights
+    `tiny_model` draws from seed 3, seeded inputs at TP_HW: forward_key
+    with is_first 0 and 1, forward_cur over a batch of 2 and, with
+    stream_gops, that many SyntheticPreparedVideo GOPs."""
+    import numpy as np
+    import torch
+
+    from lsfa_tpu_torch.config import load_config
+    from lsfa_tpu_torch.data.loader import SyntheticPreparedVideo
+
+    path = os.path.join(os.path.dirname(__file__), "..", "configs", "lsfa_tiny_smoke.json")
+    cfg = load_config(path, overrides=TP_OVERRIDES)
+    model = tiny_model(cfg)
+    h, w = TP_HW
+    fh, fw, feat = h // 16, w // 16, cfg.network.DFF_FEAT_DIM
+    rng = np.random.default_rng(7)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+    data = t(rng.integers(0, 256, (1, h, w, 3), dtype=np.uint8))
+    prev = t(rng.normal(0, 60, (1, h, w, 3)).astype(np.float32))
+    old = t(rng.normal(0, 1, (1, fh, fw, feat)).astype(np.float32))
+    cur = (t(rng.integers(0, 256, (2, h // 4, w // 4, 3), dtype=np.uint8)),
+           t(rng.normal(0, 1, (2, fh, fw, feat)).astype(np.float32)),
+           t(rng.normal(0, 1.5, (2, fh, fw, 2)).astype(np.float32)),
+           t(rng.normal(0, 8, (2, fh, fw, 3)).astype(np.float32)))
+    stream = None
+    if stream_gops:
+        pv = SyntheticPreparedVideo("tp", cfg, TP_HW, num_frames=12 * stream_gops, seed=5,
+                                    content_hw=(h - 4, w - 8), im_scale=0.5)
+        stream = {"hw": TP_HW, "payloads": [tuple(t(a) for a in pv.gop(g))
+                                            for g in range(stream_gops)]}
+    return {"cfg_path": path, "overrides": TP_OVERRIDES, "state": model.state_dict(),
+            "device": "cpu", "dtypes": ("float32",), "meshes": tuple(meshes),
+            "key": [(data, prev, old, torch.zeros(1)), (data, prev, old, torch.ones(1))],
+            "cur": cur, "grad": grad, "stream": stream, "threads": 1}
 
 
 def main(argv=None) -> int:

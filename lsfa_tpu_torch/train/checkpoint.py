@@ -16,6 +16,8 @@ import re
 
 import torch
 
+from lsfa_tpu_torch.parallel.tensor_parallel import is_sharded
+
 _RUNNING = ("running_mean", "running_var")
 _UNIT_CONV = re.compile(r"stage(\d)_unit(\d+)\.(conv[123]|sc)\.weight")
 
@@ -27,7 +29,12 @@ def _path(path: str, epoch: int) -> str:
 def save_checkpoint(path: str, epoch: int, model, optimizer, scheduler, step: int,
                     rng_state):
     """Write <path>/<epoch>.pt (written to a temporary name, then renamed).
-    optimizer and scheduler may be None (saved as None)."""
+    optimizer and scheduler may be None (saved as None). Raises ValueError
+    for a model under `parallel.shard_params`, whose state dict holds one
+    rank's shards under the full model's names."""
+    if is_sharded(model):
+        raise ValueError("save_checkpoint of a tensor-parallel model would write one rank's "
+                         "shards under the full model's names; save the unsharded model")
     os.makedirs(path, exist_ok=True)
     state = {"epoch": epoch, "step": step, "model": model.state_dict(),
              "optimizer": None if optimizer is None else optimizer.state_dict(),

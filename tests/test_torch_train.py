@@ -61,7 +61,10 @@ def t(x):
 
 def torch_to_flax(state_dict, shapes):
     """The inverse of convert.flax_to_torch onto the flax variable tree
-    whose leaves `shapes` gives (numpy leaves)."""
+    whose leaves `shapes` gives (numpy leaves, each a copy: a leaf that
+    viewed a parameter's memory would alias JAX's zero-copy buffer to it,
+    and an optimizer step of the port would then change JAX's inputs under
+    an asynchronously dispatched JAX step)."""
     names = {"scale": "weight", "bias": "bias", "mean": "running_mean",
              "var": "running_var", "kernel": "weight"}
     out = {}
@@ -76,7 +79,7 @@ def torch_to_flax(state_dict, shapes):
             elif path[-1] == "kernel" and a.ndim == 2:
                 a = a.T
             assert a.shape == leaf.shape, path
-            flat[path] = np.ascontiguousarray(a)
+            flat[path] = np.array(a, order="C")
         out[col] = unflatten_dict(flat)
     return out
 
