@@ -12,7 +12,7 @@ Phases, each printing one line before the last:
      stand-in (12, 2048), the batched GOP's per-class (360, 300),
      suppression chains at B = 1, the odd cap 1, a cut valid mask, ragged N, N = 1, the two-phase N = 2049 and 8192,
      knife-edge pairs whose float32 IoU lies within 2 ulps of t, and the
-     lane-batched GOP's four calls at B = 4 and 8 lanes ((B, 2048) and
+     lane-batched GOP's four calls at B = 4, 8 and 2 lanes ((B, 2048) and
      (11 B, 2048) t=0.7, (30 B, 300) and (330 B, 300) t=0.3);
      checks that N <= 2048 allocates no scratch (torch.cuda memory
      statistics) and that a call is one kernel for N <= 2048 and two
@@ -268,17 +268,32 @@ Phases, each printing one line before the last:
      maps within 1e-4 of each one's largest |value| of the replicated
      run's, bf16 within 1.5 x the replicated bf16 run's own distance to
      its float32 run, every rank's shards its slices of the weights.
+ 39. lanes over ranks: the flagship's weights through
+     eval_videos_lanes(lanes=4, over_ranks=True) over phase 13's records
+     in two ranks sharing the card in a gloo group
+     (tools.dryrun_multihost.run_lanes; an untimed pass, then a timed
+     one): each rank carried 2 lanes (its detector's carry), its frames
+     are the real frames of its block of the lane playlists and the ranks
+     file every frame once, 2 kernel launches per step, its detections
+     bit-equal to its block run in this process
+     (eval_videos_multistream(rank=r, world=2)); the kernel's masks equal
+     to the plain version's on a rank's real (2, 2048) and (22, 2048) RPN
+     inputs; printed, not checked: the merged mapping against the 4-lane
+     loop in this process and frames/s of the ranks against the 4- and
+     2-lane loops. Then entry.dryrun_multichip(2) on the CPU, as the hook
+     is defined (its lane-sharded evaluation included).
 `python3 chip_smoke.py --ladder STEPS --out DIR` runs phase 34 alone with
 a real step budget (`long_ladder`); `python3 chip_smoke.py --tools` runs
 phase 36 alone (`tools_only`); `python3 chip_smoke.py --lanes` runs phase
-3 at the lane shapes and phase 37 alone (`lanes_only`); `python3 chip_smoke.py
---tp` runs phase 38 alone (`tp_only`).
+3 at the lane shapes, phase 37 and phase 39 (`lanes_only`); `python3
+chip_smoke.py --tp` runs phase 38 alone (`tp_only`).
 Then the script's seconds, one JSON line for the kernels and, last, the
 result line. Any failed phase exits non-zero before the result line is
 printed.
 """
 
 import contextlib
+import functools
 import json
 import logging
 import re
@@ -444,11 +459,13 @@ LANE_CALLS = (("RPN key", 1, 2048, 0.7, 0.95), ("per-class key", 30, 300, 0.3, 0
 
 
 def lane_kernel_cases(rng):
-    """`kernel_cases` entries of the lane-batched GOP at 4 and 8 lanes."""
+    """`kernel_cases` entries of the lane-batched GOP at 4 and 8 lanes,
+    then at 2 (a rank's lanes in phase 39; drawn last, so the earlier
+    shapes keep their inputs)."""
     return [(f"lanes B={b} {what} ({k * b}, {n})",
              np.stack([sorted_boxes(rng, n) for _ in range(k * b)]),
              rng.uniform(size=(k * b, n)) < share, t, 31, True)
-            for b in (4, 8) for what, k, n, t, share in LANE_CALLS]
+            for b in (4, 8, 2) for what, k, n, t, share in LANE_CALLS]
 
 
 NOT_TRACED = "device time not measured: torch.profiler recorded no device event in 3 windows"
@@ -1115,19 +1132,22 @@ def recorded_schedule(calls):
 EVAL_LENGTHS = {"synthetic-0": 36, "synthetic-1": 36, "synthetic-2": 30}
 
 
-def eval_records(lengths):
-    """Video records of 960x576 sources (600x1000 inside the 608x1024
-    bucket) for synthetic streams, and the open_video that serves them."""
+def open_synthetic(lengths, path, *args, **kw):
+    """The SyntheticPreparedVideo of `eval_records`' stream `path`, of
+    lengths[path] frames."""
     from lsfa_tpu_torch.data.loader import SyntheticPreparedVideo
 
+    return SyntheticPreparedVideo(path, *args, num_frames=lengths[path], content_hw=CONTENT,
+                                  im_scale=600 / 576, **kw)
+
+
+def eval_records(lengths):
+    """Video records of 960x576 sources (600x1000 inside the 608x1024
+    bucket) for synthetic streams, and the open_video that serves them
+    (picklable: spawned ranks take it)."""
     roidb = [{"vid_path": name, "video_path": name, "frame_seg_len": n, "height": 576,
               "width": 960} for name, n in lengths.items()]
-
-    def open_video(path, *args, **kw):
-        return SyntheticPreparedVideo(path, *args, num_frames=lengths[path],
-                                      content_hw=CONTENT, im_scale=600 / 576, **kw)
-
-    return roidb, open_video
+    return roidb, functools.partial(open_synthetic, lengths)
 
 
 def write_vid_tree(dataset_path, lengths, height, width, seed=0):
@@ -3670,6 +3690,11 @@ def main():
     max_err = max(max_err, tensor_err)
     print(f"phases 1-38: {time.perf_counter() - T0:.1f} s since the script started")
 
+    # 39: lanes over ranks sharing the card, and the dry-run hook
+    ranks_launches, ranks_err = lanes_ranks_phase(dev, model, cfg, nms_cuda, greedy_alive)
+    max_err = max(max_err, ranks_err)
+    print(f"phases 1-39: {time.perf_counter() - T0:.1f} s since the script started")
+
     # 27. launches and device time by torch.profiler, last: after a profiled
     # window the host's launches stay slower, which would bias phases 3-26
     rfcn_account(dev)
@@ -3714,7 +3739,7 @@ def main():
                      + overfit_launches + bn_ar_launches + sum(bf16_launches.values())
                      + jpeg_launches + sum(ladder_launches.values()) + entry_launches
                      + sum(tools_launches.values()) + sum(lanes_launches.values())
-                     + sum(tensor_launches.values())),
+                     + sum(tensor_launches.values()) + sum(ranks_launches.values())),
         "max_abs_err": max_err,
         "ms": rpn["us"] / 1e3, "plain_ms": rpn["plain_us"] / 1e3,
         "bound_ms": rpn["bound_us"] / 1e3, "bound_by": rpn["bound_by"], "library_ms": None,
@@ -3727,7 +3752,7 @@ def main():
                              "overfit_smoke": overfit_launches, "bn_allreduce": bn_ar_launches,
                              **bf16_launches, "jpeg_eval": jpeg_launches, **ladder_launches,
                              "entry": entry_launches, **tools_launches, **lanes_launches,
-                             **tensor_launches},
+                             **tensor_launches, **ranks_launches},
         "shapes": shapes}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -4136,8 +4161,8 @@ def lanes_profiled(dev, runs):
                   f"busy share {tr['busy_share']:.3f}")
 
 def lanes_only():
-    """`python3 chip_smoke.py --lanes`: phase 3 at the lane shapes and
-    phase 37 alone (and its profiled part), after the build and a seeded
+    """`python3 chip_smoke.py --lanes`: phase 3 at the lane shapes, phase
+    37 (and its profiled part) and phase 39, after the build and a seeded
     flagship's eval_videos over phase 13's records; prints the launches
     as one JSON line."""
     import torch
@@ -4169,9 +4194,11 @@ def lanes_only():
     roidb, open_video = eval_records(EVAL_LENGTHS)
     eval_dets = eval_videos(model, cfg, roidb, logger=Lines(), open_video=open_video)
     launches, lanes_err, runs = lanes_phase(dev, model, cfg, nms_cuda, greedy_alive, eval_dets)
+    ranks_launches, ranks_err = lanes_ranks_phase(dev, model, cfg, nms_cuda, greedy_alive)
     lanes_profiled(dev, runs)
-    print(json.dumps({"launches": launches, "max_abs_err": max(err, lanes_err),
-                      "shapes": shapes, "seconds": time.perf_counter() - T0}))
+    print(json.dumps({"launches": {**launches, **ranks_launches},
+                      "max_abs_err": max(err, lanes_err, ranks_err), "shapes": shapes,
+                      "seconds": time.perf_counter() - T0}))
 
 
 # phase 38: tensor-parallel serving. The detections of the flagship
@@ -4370,6 +4397,153 @@ def tp_only():
     launches, err = tp_phase(dev, model.eval(), cfg, nms_cuda, greedy_alive)
     print(json.dumps({"launches": launches, "max_abs_err": err,
                       "seconds": time.perf_counter() - T0}))
+
+
+# phase 39: lanes over ranks. RANK_LANES lanes of eval_videos_lanes split
+# over 2 ranks sharing the card in a gloo group, RANK_LANES // 2 each
+RANK_LANES = 4
+
+
+def timed_run(fn):
+    """(fn(), its seconds on the host's clock between two synchronizes)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def lanes_ranks_phase(dev, model, cfg, nms_cuda, greedy_alive):
+    """Phase 39: lanes over ranks on the card. The flagship `model`'s
+    weights through eval_videos_lanes(lanes=RANK_LANES, over_ranks=True)
+    over phase 13's records, in two ranks that share the card in a gloo
+    group (``dryrun_multihost.run_lanes``; NCCL refuses two ranks on one
+    device), each an untimed pass and a timed one. Checks: every rank
+    carried RANK_LANES // 2 lanes (its detector's carry), its frames are
+    the real frames of its block of the playlists and the ranks file
+    every frame once, its launches are 2 per step, and its detections
+    equal bit for bit its block run in this process
+    (eval_videos_multistream(rank=r, world=2): the same card, batch,
+    shapes and weights); the kernel's masks equal the plain version's on a
+    rank's real RPN inputs at (2, 2048) and (22, 2048). Printed, not
+    checked: the merged mapping against eval_videos_lanes(lanes=4) in this
+    process (bf16 at another batch size), and frames/s of the two ranks
+    against the 4-lane and 2-lane loops in this process. Then
+    entry.dryrun_multichip(2) on the CPU, its evaluation fields printed.
+    Returns ({path: kernel launches}, max abs error of the masks)."""
+    import torch
+
+    from lsfa_tpu_torch import entry
+    from lsfa_tpu_torch.eval.driver import eval_videos_lanes, frame_bases
+    from lsfa_tpu_torch.eval.multistream import build_lane_playlists, eval_videos_multistream
+    from lsfa_tpu_torch.eval.tester import StreamingDetector
+    from lsfa_tpu_torch.tools import dryrun_multihost as dry
+    from lsfa_tpu_torch.utils.profiler import device_info
+
+    info = device_info(dev)
+    card = f"{info['name']} at {info['power_limit_w']:.2f} W"
+    world = 2
+    per = RANK_LANES // world
+    roidb, open_video = eval_records(EVAL_LENGTHS)
+    base, total = frame_bases(roidb)
+    ref = lsfa_from_config_like(model, cfg, dev)       # built as the ranks build theirs
+    t0 = time.perf_counter()
+    ranks = dry.run_lanes({"cfg": cfg, "state": {k: v.cpu() for k, v in ref.state_dict().items()},
+                           "device": str(dev), "records": roidb, "lanes": RANK_LANES,
+                           "open_video": open_video, "threads": 2}, world, timeout=600)
+    ranks_s = time.perf_counter() - t0
+    check(all(len(out["stats"]) == 1 for out in ranks),
+          f"lanes over ranks: bucket groups {[len(out['stats']) for out in ranks]}, not one")
+    bucket = ranks[0]["stats"][0]["bucket"]
+
+    # this process: each rank's block, then the 4- and 2-lane loops
+    blocks = []
+    for r in range(world):
+        dets = eval_videos_multistream(ref, cfg, roidb, lanes=RANK_LANES, logger=Lines(),
+                                       bucket_hw=bucket, open_video=open_video, rank=r,
+                                       world=world)
+        blocks.append({base[id(roidb[vi])] + fid: d for (vi, fid), d in dets.items()})
+
+    def loop(lanes):
+        return eval_videos_lanes(ref, cfg, roidb, lanes=lanes, logger=Lines(),
+                                 open_video=open_video)
+
+    single, _ = timed_run(lambda: loop(RANK_LANES))     # cuDNN's first use of the shapes
+    _, four_s = timed_run(lambda: loop(RANK_LANES))
+    _, two_s = timed_run(lambda: loop(per))             # batch 2: warm from the blocks
+
+    playlists = build_lane_playlists(roidb, RANK_LANES, cfg.TEST.KEY_FRAME_INTERVAL)
+    merged = ranks[0]["dets"]
+    launches, lines = {}, []
+    for r, out in enumerate(ranks):
+        (group,) = out["stats"]
+        own = {k: merged[k] for k in group["frames"]} if r == 0 else out["dets"]
+        block = sorted(base[id(roidb[vi])] + fid
+                       for pl in playlists[r * per:(r + 1) * per] for vi, fid, real in pl if real)
+        check(group["lanes"] == per, f"lanes over ranks: rank {r} carried {group['lanes']} lanes")
+        check(group["frames"] == sorted(own) == block,
+              f"lanes over ranks: rank {r}'s frames are not its block of the playlists")
+        check(out["launches"] == 2 * group["steps"] * out["passes"],
+              f"lanes over ranks: rank {r} launched the kernel {out['launches']} times in "
+              f"{out['passes']} passes of {group['steps']} steps, not 2 per step")
+        for d in own.values():
+            check(bool(np.isfinite(d["scores"]).all() and np.isfinite(d["boxes"]).all()),
+                  f"lanes over ranks: rank {r}'s detections are not finite")
+        st = frame_stats([frame_diff(*loop_pair(own[k]), *loop_pair(blocks[r][k]))
+                          for k in block])
+        same = own.keys() == blocks[r].keys() and all(
+            all(np.array_equal(own[k][f], blocks[r][k][f]) for f in ("labels", "scores", "boxes"))
+            for k in own)
+        launches[f"lanes_ranks_r{r}"] = out["launches"]
+        lines.append(f"rank {r}: {group['lanes']} lanes, {len(own)} frames (its block of the "
+                     f"playlists), {group['steps']} steps, nms kernel launches "
+                     f"{out['launches']} in {out['passes']} passes (2 per step), "
+                     f"{len(own) / out['seconds']:.1f} frames/s ({out['seconds']:.3f} s); "
+                     f"bit-equal to its block run in this process: {same} ({stats_line(st)})")
+        check(same, f"lanes over ranks: rank {r}'s detections differ from its block run in "
+                    f"this process: {st}")
+    check(sorted(merged) == list(range(total))
+          and sum(len(out["stats"][0]["frames"]) for out in ranks) == total,
+          "lanes over ranks: the ranks did not file every frame once")
+    for line in lines:
+        print(f"lanes over ranks: {line}")
+    st = frame_stats([frame_diff(*loop_pair(merged[k]), *loop_pair(single[k]))
+                      for k in range(total)])
+    slowest = max(out["seconds"] for out in ranks)
+    print(f"lanes over ranks: {RANK_LANES} lanes over 2 ranks sharing one {card} in a gloo "
+          f"group, phase 13's {total} frames at {bucket[0]}x{bucket[1]}: "
+          f"{total / slowest:.1f} frames/s aggregate (the slower rank's {slowest:.3f} s; the "
+          f"spawn {ranks_s:.1f} s with start-up and both passes), against "
+          f"eval_videos_lanes in this process: {RANK_LANES} lanes {total / four_s:.1f} "
+          f"frames/s ({four_s:.3f} s), {per} lanes {total / two_s:.1f} ({two_s:.3f} s)")
+    print(f"lanes over ranks: the merged mapping against eval_videos_lanes(lanes={RANK_LANES}) "
+          f"in this process, bf16 at another batch size (a measurement): {stats_line(st)}")
+
+    # the kernel on a rank's real RPN inputs
+    ins, _ = lane_inputs(cfg, per)
+    det = StreamingDetector(ref, cfg, BUCKET, batch=per)
+    max_err, masks = 0.0, []
+    for what, (got, want, boxes) in zip(("key", "non-key"),
+                                        lane_rpn_masks(det, ins, nms_cuda, greedy_alive)):
+        check(torch.equal(got, want), f"lanes over ranks: kernel != plain on the {what} RPN input")
+        max_err = max(max_err, float((got.int() - want.int()).abs().max()))
+        masks.append(f"{what} {tuple(boxes.shape)} {int(got.sum())} alive")
+    print(f"lanes over ranks: kernel masks equal the plain version's on a rank's real RPN "
+          f"inputs at B={per}: {', '.join(masks)}")
+    del det, ref
+
+    # the dry-run hook, on the CPU as it is defined
+    t0 = time.perf_counter()
+    report = entry.dryrun_multichip(2)
+    fields = {k: v for k, v in report.items() if k.startswith("eval_")}
+    check(report["eval_equal"] and report["eval_lanes_equal"]
+          and report["eval_lanes_by_rank"] == [2, 2],
+          f"lanes over ranks: entry.dryrun_multichip(2): {fields}")
+    print(f"lanes over ranks: entry.dryrun_multichip(2) on the CPU with torch "
+          f"{torch.__version__}, {time.perf_counter() - t0:.1f} s: {json.dumps(fields)}")
+    return launches, max_err
 
 
 def long_ladder(argv):

@@ -403,7 +403,7 @@ def eval_videos_timeplex(model, cfg, video_roidb, streams: int = 3,
 
 def eval_videos_lanes(model, cfg, video_roidb, lanes: int, det_cache: str | None = None,
                       logger=None, max_frames: int | None = None, over_ranks: bool = False,
-                      open_video=None, read_image=None):
+                      open_video=None, read_image=None, stats: list | None = None):
     """`lanes` video streams in lockstep through one lane-batched detector
     per bucket group (``eval.multistream.eval_videos_multistream``),
     detections merged back to the global frame order of video_roidb: the
@@ -416,8 +416,11 @@ def eval_videos_lanes(model, cfg, video_roidb, lanes: int, det_cache: str | None
     (``parallel.mesh``; lanes must divide by the world size): each rank
     runs its contiguous block of the global playlists and rank 0 gathers
     the detections, so rank 0 returns the whole mapping and every other
-    rank its own lanes'. det_cache, open_video, read_image: as
-    `eval_videos`'s (rank 0 writes the cache)."""
+    rank its own lanes'. stats: receives one dict per bucket group run on
+    this rank: its bucket, the `eval_videos_multistream` stats (steps, and
+    the lanes this rank carried) and frames, the global indices of the
+    real frames this rank's lanes filed, sorted. det_cache, open_video,
+    read_image: as `eval_videos`'s (rank 0 writes the cache)."""
     log = logger.info if logger else print
     cached = load_det_cache(det_cache, log)
     if cached is not None:
@@ -434,15 +437,18 @@ def eval_videos_lanes(model, cfg, video_roidb, lanes: int, det_cache: str | None
             continue
         log(f"bucket {bucket}: {len(recs)} videos over {lanes} lanes"
             + (f", {lanes // world} on rank {rank} of {world}" if world > 1 else ""))
-        stats: dict = {}
+        group: dict = {}
         lane_dets = eval_videos_multistream(
             model, cfg, recs, lanes=lanes, logger=logger, bucket_hw=bucket,
-            max_steps=None if budget is None else max(1, -(-budget // lanes)), stats=stats,
+            max_steps=None if budget is None else max(1, -(-budget // lanes)), stats=group,
             open_video=open_video, read_image=read_image, rank=rank, world=world)
         if budget is not None:
-            budget -= stats["steps"] * lanes
+            budget -= group["steps"] * lanes
         for (vi, fid), det in lane_dets.items():
             detections[base[id(recs[vi])] + fid] = det
+        if stats is not None:
+            stats.append({"bucket": bucket, **group,
+                          "frames": sorted(base[id(recs[vi])] + fid for vi, fid in lane_dets)})
     if world > 1:
         import torch.distributed as dist
 

@@ -203,10 +203,12 @@ def eval_videos_multistream(model, cfg, video_roidb, lanes: int = 4, logger=None
 
     model: an LSFA module with its weights, on the device to run on.
     max_steps: stop after that many lockstep steps. stats: receives
-    {"steps": N}, the steps run (each `lanes` frames of device work,
-    idle-lane padding included), so that callers with a frame budget can
-    charge the real work. A step's detections are read back while the
-    next step runs."""
+    {"steps": N, "lanes": L}: the steps run (each `lanes` frames of device
+    work, idle-lane padding included), so that callers with a frame
+    budget can charge the real work, and the lanes this rank carried,
+    read from the leading dimension of the detector's key-feature carry
+    (lanes // world when the lanes are split over ranks). A step's
+    detections are read back while the next step runs."""
     log = logger.info if logger else print
     h, w = bucket_hw or cfg.tpu.default_bucket
     loader = MultiStreamEvalLoader(video_roidb, cfg, lanes=lanes, bucket_hw=(h, w),
@@ -240,6 +242,6 @@ def eval_videos_multistream(model, cfg, video_roidb, lanes: int = 4, logger=None
                 break
     post(pending)
     if stats is not None:
-        stats["steps"] = steps_run
+        stats.update(steps=steps_run, lanes=det.feat_key.shape[0])
     log(f"multistream eval: {len(detections)} frames over {loader.lanes} lanes")
     return detections

@@ -13,8 +13,9 @@ streams on the leading axis of its state, and every step runs all B lanes
 in one batch: a GOP's key step over the B key frames, then one non-key
 batch over its n*B frames (n-major: frame i of lane l is row i*B + l).
 Lanes never interact, so each lane's detections are its own stream's. The
-JAX package shards the lane axis over a device mesh; the port runs one
-detector per rank instead (``eval.driver.eval_videos_lanes``).
+lanes shard over ranks as JAX's lane axis shards over a device mesh: each
+rank runs one detector over its block of the lanes, so its carry holds
+only its own lanes (``eval.driver.eval_videos_lanes(over_ranks=True)``).
 """
 
 from __future__ import annotations

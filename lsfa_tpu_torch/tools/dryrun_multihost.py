@@ -26,6 +26,12 @@ StreamingDetector over GOPs; `tp_reference` runs the unsharded model in
 this process, and `tp_report` holds every rank's maps and gradients
 against it and its shards against the full weights.
 
+The lanes counterpart (`run_lanes`, no command line: ``entry.
+dryrun_multichip``, the tests and ``chip_smoke.py`` phase 39 call it):
+ranks in one gloo group split the lockstep lanes of
+``eval.driver.eval_videos_lanes(over_ranks=True)``, on the CPU or on
+one card that they share.
+
 Usage: python -m lsfa_tpu_torch.tools.dryrun_multihost [--nproc N] [--out FILE]
 """
 
@@ -432,6 +438,88 @@ def tiny_tp_job(meshes, grad=True, stream_gops=0) -> dict:
             "device": "cpu", "dtypes": ("float32",), "meshes": tuple(meshes),
             "key": [(data, prev, old, torch.zeros(1)), (data, prev, old, torch.ones(1))],
             "cur": cur, "grad": grad, "stream": stream, "threads": 1}
+
+
+def lanes_worker(rank: int, world: int, port: int, job_path: str, out_dir: str):
+    """One rank of `run_lanes`: the job's model on its device through
+    ``eval.driver.eval_videos_lanes(over_ranks=True)``, the rank's result
+    saved to out_dir."""
+    import logging
+    import time
+
+    import torch
+
+    from lsfa_tpu_torch.eval.driver import eval_videos_lanes
+    from lsfa_tpu_torch.models.lsfa import lsfa_from_config
+    from lsfa_tpu_torch.ops import nms_cuda
+    from lsfa_tpu_torch.parallel import mesh
+    from lsfa_tpu_torch.utils.profiler import sync
+
+    job = torch.load(job_path, weights_only=False)
+    torch.set_num_threads(job["threads"])
+    dev = torch.device(job["device"])
+    # gloo on either device: NCCL refuses two ranks on one card
+    mesh.initialize_distributed(f"127.0.0.1:{port}", world, rank, device="cpu")
+    try:
+        cfg = job["cfg"]
+        model = lsfa_from_config(cfg, device=dev)
+        model.load_state_dict(job["state"])
+
+        def run():
+            stats = []
+            dets = eval_videos_lanes(model.eval(), cfg, job["records"], job["lanes"],
+                                     logger=logging.getLogger(__name__), over_ranks=True,
+                                     open_video=job["open_video"], stats=stats)
+            return dets, stats
+
+        # on a card, an untimed pass first: cuDNN's first use of the shapes
+        passes = 2 if dev.type == "cuda" else 1
+        nms_cuda.LAUNCHES = 0
+        for _ in range(passes - 1):
+            run()
+        sync(dev)
+        t0 = time.perf_counter()
+        dets, stats = run()
+        sync(dev)
+        torch.save({"dets": dets, "stats": stats, "launches": nms_cuda.LAUNCHES,
+                    "passes": passes, "seconds": time.perf_counter() - t0},
+                   os.path.join(out_dir, f"lanes_rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run_lanes(job: dict, nproc: int, timeout: float = 900.0) -> list:
+    """Spawn `nproc` ranks of `lanes_worker` on `job` and return, for each
+    rank, {"dets": its `eval_videos_lanes` mapping (rank 0's holds every
+    rank's frames), "stats": that call's stats, "launches": the NMS
+    kernel's launches over its passes, "passes": 1, or 2 on a card (the
+    first untimed), "seconds": the last pass on the host's clock after a
+    synchronize, start-up excluded}. Raises TimeoutError, the ranks
+    stopped, when they run past `timeout` seconds.
+
+    job: "cfg"; "state", the weights (CPU tensors); "device", every
+    rank's ("cuda:0" puts the ranks on one card); "records", the video
+    roidb; "lanes", the global count (divisible by nproc); "open_video",
+    a picklable opener or None; "threads", torch threads per rank."""
+    import time
+
+    import torch
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        job_path = os.path.join(tmp, "job.pt")
+        torch.save(job, job_path)
+        ranks = mp.spawn(lanes_worker, args=(nproc, free_port(), job_path, tmp), nprocs=nproc,
+                         join=False)
+        deadline = time.monotonic() + timeout
+        while not ranks.join(timeout=max(0.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                for p in ranks.processes:
+                    p.kill()
+                    p.join()
+                raise TimeoutError(f"run_lanes: the {nproc} ranks ran past {timeout} s")
+        return [torch.load(os.path.join(tmp, f"lanes_rank{r}.pt"), weights_only=False)
+                for r in range(nproc)]
 
 
 def main(argv=None) -> int:

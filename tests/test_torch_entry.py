@@ -8,8 +8,13 @@
   test_torch_convert) within the tolerance of test_torch_variants (1e-4
   relative; absolute 1e-4, or 1e-5 of the map's largest |value|).
 - `dryrun_multichip(2)`: the train step over two gloo ranks equal to the
-  single process's, and the evaluation sharded by rank, together equal to
-  the single process's.
+  single process's; the evaluation sharded by video, together equal to
+  the single process's; and the lanes of one lane-batched detector split
+  over the ranks (4 lanes, 2 carried by each rank, the counterpart of
+  JAX's lane-sharded StreamingDetector), every frame filed once and the
+  merged mapping within the lanes' tolerance of the single process's
+  4-lane run (the hook itself holds each rank bit for bit against its
+  block run in one process).
 """
 
 import functools
@@ -88,3 +93,7 @@ def test_dryrun_multichip_ranks_agree():
     assert report["ok"] and report["n_processes"] == 2 and report["ranks_identical"]
     assert report["eval_equal"] and sum(report["eval_frames_by_rank"]) == report["eval_frames"]
     assert report["eval_frames"] == sum(entry.EVAL_LENGTHS) and report["eval_detections"] > 0
+    assert report["eval_lanes_equal"] and report["eval_lanes"] == 4
+    assert report["eval_lanes_by_rank"] == [2, 2]
+    assert sum(report["eval_lane_frames_by_rank"]) == sum(entry.EVAL_LENGTHS)
+    assert report["eval_lanes_max_score_diff"] <= 1e-5 and report["eval_lanes_max_box_diff"] <= 1e-5

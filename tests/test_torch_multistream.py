@@ -20,7 +20,13 @@ no ties; JAX's steps compiled with XLA's algsimp pass off) runs B lanes:
     against the port's `eval_videos` on every frame but a partial GOP's
     tail, which `eval_videos` restarts and the lanes carry on, as in JAX;
   * `lsfa_test --lanes 2 --mesh 2` as two processes of a gloo group
-    against the unsharded run; `bench --multistream` on the CPU.
+    against the unsharded run; `bench --multistream` on the CPU;
+  * `eval_videos_lanes(over_ranks=True)` over two spawned gloo ranks
+    (``tools.dryrun_multihost.run_lanes``): 4 lanes over
+    SyntheticPreparedVideo streams, each rank's frames its block of
+    `build_lane_playlists` and its lanes (the detector's carry) 2; 2 lanes
+    on decoded clips against JAX's `eval_videos_lanes` over a mesh of two
+    of the virtual CPU devices (labels equal, scores 1e-4, boxes 1e-2).
 
 Lanes against a run of the same frames at another batch size (a lane
 against its single-lane run, `eval_videos_lanes` against `eval_videos`,
@@ -51,7 +57,9 @@ import jax.numpy as jnp
 from lsfa_tpu.config import load_config as jax_load_config
 from lsfa_tpu.eval import driver as jax_driver
 from lsfa_tpu.eval import multistream as jax_multistream
+from lsfa_tpu.eval.tester import StreamingDetector as JaxStreamingDetector
 from lsfa_tpu.models.lsfa import lsfa_from_config as jax_lsfa_from_config
+from lsfa_tpu.parallel.mesh import make_mesh
 from lsfa_tpu_torch import bench
 from lsfa_tpu_torch.config import load_config
 from lsfa_tpu_torch.convert import flax_to_torch
@@ -61,10 +69,12 @@ from lsfa_tpu_torch.eval import driver, multistream
 from lsfa_tpu_torch.eval.tester import StreamingDetector
 from lsfa_tpu_torch.experiments import lsfa_test
 from lsfa_tpu_torch.models.lsfa import lsfa_from_config
+from lsfa_tpu_torch.tools.dryrun_multihost import run_lanes
 from tests.test_torch_convert import perturb, to_numpy
 from tests.test_torch_convert import two_torch_threads  # noqa: F401  (a fixture)
 from tests.test_torch_eval_loops import (  # noqa: F401  (roidb: a fixture)
-    BUCKET, LOG, LSFA_CONFIG, ExactJaxStreamingDetector, assert_detections_close, roidb)
+    BUCKET, LOG, LSFA_CONFIG, ExactJaxStreamingDetector, assert_detections_close, no_algsimp,
+    roidb)
 from tests.test_torch_slice import assert_boxes_close
 
 pytestmark = pytest.mark.usefixtures("two_torch_threads")
@@ -511,3 +521,68 @@ def test_bench_multistream_on_the_cpu(capsys):
         kd, kv, cd, cv = windows[0]
         assert_lane_close((kd[:, lane], kv[:, lane]), (want[0][:, 0], want[1][:, 0]))
         assert_lane_close((cd[:, :, lane], cv[:, :, lane]), (want[2], want[3]))
+
+
+def test_lanes_over_two_ranks_are_their_playlist_blocks(lsfa):
+    """4 lanes over 2 spawned gloo ranks, SyntheticPreparedVideo streams of
+    30, 24, 18 and 13 frames: each rank's stats name 2 lanes and its
+    frames, the real frames of its block [2r, 2r + 2) of the global
+    playlists; rank 1 returns exactly those frames, rank 0 every frame,
+    each once. The same blocks in this process
+    (`eval_videos_multistream(rank=r, world=2)`) report 2 lanes."""
+    _, _, _, cfg, tm = lsfa
+    lengths = (30, 24, 18, 13)
+    roidb, _ = synthetic_roidb(list(lengths))
+    opener = functools.partial(SyntheticPreparedVideo, content_hw=(60, 104))
+    ranks = run_lanes({"cfg": cfg, "state": tm.state_dict(), "device": "cpu", "records": roidb,
+                       "lanes": 4, "open_video": opener, "threads": 2}, 2, timeout=300)
+    playlists = multistream.build_lane_playlists(roidb, 4, cfg.TEST.KEY_FRAME_INTERVAL)
+    base, total = driver.frame_bases(roidb)
+    for rank, out in enumerate(ranks):
+        block = sorted(base[id(roidb[vi])] + fid for pl in playlists[2 * rank:2 * rank + 2]
+                       for vi, fid, real in pl if real)
+        (group,) = out["stats"]
+        assert group["lanes"] == 2 and group["frames"] == block
+        assert group["steps"] == max(len(p) for p in playlists)
+        assert out["passes"] == 1 and out["launches"] == 0          # the plain NMS on the CPU
+        stats = {}
+        local = multistream.eval_videos_multistream(tm, cfg, roidb, lanes=4, logger=LOG,
+                                                    bucket_hw=group["bucket"],
+                                                    open_video=opener, rank=rank, world=2,
+                                                    stats=stats)
+        assert stats == {"steps": group["steps"], "lanes": 2}
+        assert sorted(base[id(roidb[vi])] + fid for vi, fid in local) == block
+    assert sorted(ranks[1]["dets"]) == ranks[1]["stats"][0]["frames"]
+    assert sorted(ranks[0]["dets"]) == list(range(total)) == list(range(sum(lengths)))
+
+
+class ExactJaxMeshDetector(JaxStreamingDetector):
+    """ExactJaxStreamingDetector over a mesh: its steps compiled apart from
+    the unsharded ones, since a step compiled for one device refuses
+    lane-sharded arguments."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        for name in ("_scan_gops_step", "_key_step", "_cur_step"):
+            setattr(self, name, no_algsimp(f"{name}@mesh{self.mesh.size}",
+                                           getattr(self, name)))
+
+
+def test_lanes_over_two_ranks_match_jax_mesh(roidb, lsfa):
+    """The port's 2 lanes over two spawned gloo ranks, one lane each,
+    against JAX's 2 lanes sharded over a mesh of two devices, on the
+    three decoded videos: rank 0's merged mapping within
+    tests/test_torch_eval_loops.py's tolerance of JAX's."""
+    jcfg, jm, v, cfg, tm = lsfa
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_multistream, "StreamingDetector", ExactJaxMeshDetector)
+        want = jax_driver.eval_videos_lanes(jm, v, jcfg, roidb[0], lanes=2, logger=LOG,
+                                            mesh=make_mesh(2))
+    ranks = run_lanes({"cfg": cfg, "state": tm.state_dict(), "device": "cpu",
+                       "records": roidb[0], "lanes": 2, "open_video": None, "threads": 2},
+                      2, timeout=300)
+    assert [out["stats"][0]["lanes"] for out in ranks] == [1, 1]
+    got = ranks[0]["dets"]
+    assert sorted(got) == sorted(want) == list(range(102))
+    assert_detections_close(got, want)
+
