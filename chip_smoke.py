@@ -329,6 +329,19 @@ def check(cond, msg):
         fail(msg)
 
 
+REC = None      # the run's recorder (utils.profiler.tracing), set under __main__
+
+
+def nms_launches() -> int:
+    """NMS kernel launches since the last `reset_nms_launches`: the recorder's
+    ``nms.launches`` counter."""
+    return REC.counters.get("nms.launches", 0)
+
+
+def reset_nms_launches():
+    REC.counters["nms.launches"] = 0
+
+
 def cuda_ms(fn, reps=20):
     """Median milliseconds of fn() on the card, by CUDA events, after a
     warm-up call."""
@@ -700,14 +713,14 @@ def train_run(cfg, model, n_steps, nms_cuda, greedy_alive, still_ok=()):
     def hook(step, metrics):
         end = torch.cuda.Event(enable_timing=True)
         end.record()
-        steps.append((metrics, end, nms_cuda.LAUNCHES))
+        steps.append((metrics, end, nms_launches()))
         if step == 0:                    # the first step initializes cuDNN/cuBLAS
             torch.cuda.set_sync_debug_mode("warn")
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     nms_cuda.greedy_alive_cuda = recorded
-    nms_cuda.LAUNCHES = 0
+    reset_nms_launches()
     start = torch.cuda.Event(enable_timing=True)
     start.record()
     try:
@@ -718,7 +731,7 @@ def train_run(cfg, model, n_steps, nms_cuda, greedy_alive, still_ok=()):
         torch.cuda.set_sync_debug_mode("default")
         nms_cuda.greedy_alive_cuda = kernel
     torch.cuda.synchronize()
-    launches = nms_cuda.LAUNCHES
+    launches = nms_launches()
     check(len(steps) == n_steps, f"train_net ran {len(steps)} steps, not {n_steps}")
     check([n for _, _, n in steps] == list(range(1, n_steps + 1)),
           f"kernel launches after each step {[n for _, _, n in steps]}, not one per step")
@@ -800,7 +813,7 @@ def tiny_train_card_vs_cpu(dev, nms_cuda, network=None):
     draws = [{n: torch.from_numpy(rng.uniform(size=(2, k)).astype(np.float32))
               for n in ("rpn_fg", "rpn_bg")} for _ in small]
     results = []
-    nms_cuda.LAUNCHES = 0
+    reset_nms_launches()
     for m, d in ((cpu_model, "cpu"), (gpu_model, dev)):
         opt, sched = make_optimizer(m, tiny.TRAIN.lr, [1000])
         step = make_train_step(m, settings, opt, sched)
@@ -809,7 +822,7 @@ def tiny_train_card_vs_cpu(dev, nms_cuda, network=None):
         results.append(([{n: float(v) for n, v in x.items()} for x in mets],
                         {n: p.detach().cpu() for n, p in m.named_parameters()},
                         {n: b.cpu() for n, b in m.named_buffers() if n.endswith(("_mean", "_var"))}))
-    check(nms_cuda.LAUNCHES == 2, f"tiny card steps launched the kernel {nms_cuda.LAUNCHES} times")
+    check(nms_launches() == 2, f"tiny card steps launched the kernel {nms_launches()} times")
     (cpu_m, cpu_p, cpu_s), (gpu_m, gpu_p, gpu_s) = results
     met_err = max(abs(g[n] - c[n]) / max(abs(c[n]), 1e-12)
                   for g, c in zip(gpu_m, cpu_m) for n in c)
@@ -868,7 +881,7 @@ def rfcn_serving(dev, nms_cuda, greedy_alive):
                                                           dtype=np.uint8)
     info = np.asarray([[CONTENT[0], CONTENT[1], 600 / 576]], np.float32)
     torch.cuda.synchronize()
-    nms_cuda.LAUNCHES = 0
+    reset_nms_launches()
     outs, enqueue, wall, counts, syncs = [], [], [], [], 0
     for i, frame in enumerate(frames):
         t0 = time.perf_counter()
@@ -881,10 +894,10 @@ def rfcn_serving(dev, nms_cuda, greedy_alive):
         enqueue.append(time.perf_counter() - t0)
         torch.cuda.synchronize()
         wall.append(time.perf_counter() - t0)
-        counts.append(nms_cuda.LAUNCHES)
+        counts.append(nms_launches())
         syncs += sum("synchroniz" in str(w.message) for w in caught)
         outs.append(out)
-    launches = nms_cuda.LAUNCHES
+    launches = nms_launches()
     check(counts == [2 * (i + 1) for i in range(len(frames))],
           f"kernel launches after each frame {counts}, not 2 per frame")
     check(syncs == 0, f"{syncs} host syncs flagged after the first frame")
@@ -1220,13 +1233,13 @@ def lsfa_loop(name, loop, model, cfg, nms_cuda, desc="LSFA ResNet-101 bf16", **k
     n_frames = sum(EVAL_LENGTHS.values())
     log, calls = Lines(), []
     torch.cuda.synchronize()
-    nms_cuda.LAUNCHES = 0
+    reset_nms_launches()
     t0 = time.perf_counter()
     with recorded_schedule(calls):
         detections = loop(model, cfg, roidb, logger=log, open_video=open_video, **kw)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = nms_cuda.LAUNCHES
+    launches = nms_launches()
     check_detections(name, detections, n_frames)
     windows = [c for c in calls if c["kind"] == "window"]
     frames = [c for c in calls if c["kind"] == "frame"]
@@ -1319,12 +1332,12 @@ def eval_phases(dev, model, cfg, nms_cuda):
     log = Lines()
     eval_videos_rfcn(rfcn, rcfg, roidb, logger=Lines(), open_video=open_video, max_frames=2)
     torch.cuda.synchronize()
-    nms_cuda.LAUNCHES = 0
+    reset_nms_launches()
     t0 = time.perf_counter()
     dets = eval_videos_rfcn(rfcn, rcfg, roidb, logger=log, open_video=open_video)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    rfcn_launches = nms_cuda.LAUNCHES
+    rfcn_launches = nms_launches()
     check_detections("eval_videos_rfcn", dets, 12)
     check(rfcn_launches == 24, f"eval_videos_rfcn: {rfcn_launches} kernel launches, not 2 x 12")
     print(f"eval_videos_rfcn: R-FCN ResNet-101 bf16 at {BUCKET[0]}x{BUCKET[1]}, one synthetic "
@@ -1452,12 +1465,12 @@ def hobot_phase(dev, nms_cuda):
     payload = synth_gops(cfg, 1, 8)
     det.process_prepared_window(payload, first=True)
     torch.cuda.synchronize()
-    nms_cuda.LAUNCHES = 0
+    reset_nms_launches()
     t0 = time.perf_counter()
     kd, kv, cd, cv = det.process_prepared_window(payload, first=True)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    launches = nms_cuda.LAUNCHES
+    launches = nms_launches()
     check(launches == 4, f"hobot: {launches} kernel launches in one GOP, not 4")
     check(tuple(kd.shape) == (1, 1, 300, 6) and tuple(cd.shape) == (1, GOP - 1, 300, 6),
           f"hobot detection shapes {tuple(kd.shape)}, {tuple(cd.shape)}")
@@ -1494,7 +1507,7 @@ def batch_gop_phase(dev, model, cfg, nms_cuda, greedy_alive):
         return alive, conv
 
     torch.cuda.synchronize()
-    nms_cuda.LAUNCHES = 0
+    reset_nms_launches()
     nms_cuda.greedy_alive_cuda = recorded
     try:
         dets, valid = demo_batch.main(["--cfg", str(LSFA_CONFIG), "--video", "synthetic-gop"],
@@ -1502,7 +1515,7 @@ def batch_gop_phase(dev, model, cfg, nms_cuda, greedy_alive):
         torch.cuda.synchronize()
     finally:
         nms_cuda.greedy_alive_cuda = kernel
-    launches = nms_cuda.LAUNCHES
+    launches = nms_launches()
     check(launches == 2, f"batched GOP: {launches} kernel launches, not 2")
     shapes = [(tuple(b.shape[:2]), t) for b, _, t, _, _ in seen]
     check(shapes == [((GOP, 2048), 0.7), ((GOP * 30, 300), 0.3)],
@@ -1767,11 +1780,11 @@ def reference_roundtrip(dev, nms_cuda, greedy_alive, tmp):
                 [payload], first=True)
             det = StreamingDetector(loaded, cfg, BUCKET)
             state0 = det.get_state()
-            nms_cuda.LAUNCHES = 0
+            reset_nms_launches()
             out = det.process_prepared_window([payload], first=True)
             torch.cuda.synchronize()
             key, n_want = "roundtrip_lsfa", 4
-            launches[key] = nms_cuda.LAUNCHES
+            launches[key] = nms_launches()
             same = all(torch.equal(a, b) for a, b in zip(out, ref_out))
             got_m, want_m, boxes, valid = key_rpn_masks(det, state0, payload, True, nms_cuda,
                                                         greedy_alive)
@@ -1780,11 +1793,11 @@ def reference_roundtrip(dev, nms_cuda, greedy_alive, tmp):
             ref = RFCNDetector(source, cfg, BUCKET)
             ref_out = [ref.detect(f, info) for f in frames]
             det = RFCNDetector(loaded, cfg, BUCKET)
-            nms_cuda.LAUNCHES = 0
+            reset_nms_launches()
             out = [det.detect(f, info) for f in frames]
             torch.cuda.synchronize()
             key, n_want = "roundtrip_rfcn", 2 * len(frames)
-            launches[key] = nms_cuda.LAUNCHES
+            launches[key] = nms_launches()
             same = all(torch.equal(a, b) for o, r in zip(out, ref_out) for a, b in zip(o, r))
             got_m, want_m, boxes, valid = frame_rpn_masks(det, cfg, frames[-1], info, nms_cuda,
                                                           greedy_alive)
@@ -1866,14 +1879,14 @@ def launcher_phase(dev, nms_cuda, tmp, ckpt):
             "TEST": {"test_epoch": 0}})
         calls = []
         torch.cuda.synchronize()
-        nms_cuda.LAUNCHES = 0
+        reset_nms_launches()
         t0 = time.perf_counter()
         with recorded_schedule(calls):
             mean_ap, ap = run_test(cfg, ckpt_dir=ckpt, streams=streams, open_video=open_video,
                                    device=dev)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        launches[key] = nms_cuda.LAUNCHES
+        launches[key] = nms_launches()
         out_dir = Path(cfg.output_path) / cfg.symbol / cfg.dataset.test_image_set
         with open(out_dir / "detections.pkl", "rb") as f:
             dets[key] = pickle.load(f)
@@ -2238,7 +2251,7 @@ def train_test_phase(dev, nms_cuda, greedy_alive, tmp):
     batch = batch_to_device(next(iter(loader)), dev)
     draws = draw_uniforms(TrainSettings.from_config(cfg), batch,
                           torch.Generator(device=dev).manual_seed(5))
-    nms_cuda.LAUNCHES = 0
+    reset_nms_launches()
     plain = [one_step(cfg, model, state, batch, draws) for _ in range(2)]
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
@@ -2250,7 +2263,7 @@ def train_test_phase(dev, nms_cuda, greedy_alive, tmp):
             check(torch.distributed.get_backend() == "nccl" and mesh.world_size() == 1,
                   f"process group {torch.distributed.get_backend()}, world {mesh.world_size()}")
             dist_m, dist_p = one_step(cfg, model, state, batch, draws)
-            check_launches = nms_cuda.LAUNCHES
+            check_launches = nms_launches()
             (m0, p0), (_, p1) = plain
             spread = max(float((p1[k] - p0[k]).abs().max()) for k in p0)
             met_err = max(abs(dist_m[k] - m0[k]) / max(abs(m0[k]), 1e-12) for k in m0)
@@ -2283,7 +2296,7 @@ def train_test_phase(dev, nms_cuda, greedy_alive, tmp):
                     metrics = step(batch, draws)
                     end = torch.cuda.Event(enable_timing=True)
                     end.record()
-                    steps.append((metrics, end, nms_cuda.LAUNCHES, tuple(batch["data"].shape)))
+                    steps.append((metrics, end, nms_launches(), tuple(batch["data"].shape)))
                     last_train.update(seen)
                     return metrics
                 return run
@@ -2296,7 +2309,7 @@ def train_test_phase(dev, nms_cuda, greedy_alive, tmp):
             calls = []
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
-            nms_cuda.LAUNCHES = 0
+            reset_nms_launches()
             nms_cuda.greedy_alive_cuda, driver.make_train_step = recorded, recording
             t0 = time.perf_counter()
             start = torch.cuda.Event(enable_timing=True)
@@ -2312,7 +2325,7 @@ def train_test_phase(dev, nms_cuda, greedy_alive, tmp):
             torch.cuda.synchronize()
             t_end = time.perf_counter()
             wall = t_end - t0
-            launches = nms_cuda.LAUNCHES
+            launches = nms_launches()
             check(mesh.active(), "the launcher ended a process group it did not start")
         finally:
             torch.distributed.destroy_process_group()
@@ -2439,7 +2452,7 @@ def demo_phase(dev, model, nms_cuda, tmp):
 
     text = io.StringIO()
     torch.cuda.synchronize()
-    nms_cuda.LAUNCHES = 0
+    reset_nms_launches()
     vis.write_png = timed_write
     t0 = time.perf_counter()
     try:
@@ -2453,7 +2466,7 @@ def demo_phase(dev, model, nms_cuda, tmp):
         vis.write_png = write_png
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"demo": nms_cuda.LAUNCHES}
+    launches = {"demo": nms_launches()}
     lines = [ln for ln in text.getvalue().splitlines() if ln.startswith("frame ")]
     flags = [0] + [2] * 11 + [1] + [2] * 11
     check([f for f, _ in frames] == flags and len(lines) == n
@@ -2488,10 +2501,10 @@ def demo_phase(dev, model, nms_cuda, tmp):
         return SyntheticPreparedVideo(path, *args, num_frames=14, content_hw=CONTENT,
                                       im_scale=600 / 576, **kw)
 
-    nms_cuda.LAUNCHES = 0
+    reset_nms_launches()
     run_test(cfg, vis_frames=4, open_video=open_video, model=model,
              read_image=lambda p: seeded_image(p, video_hw=(576, 960)))
-    launches["launcher_vis"] = nms_cuda.LAUNCHES
+    launches["launcher_vis"] = nms_launches()
     vis_dir = Path(cfg.output_path) / cfg.symbol / cfg.dataset.test_image_set / "vis"
     shots = sorted(vis_dir.iterdir())
     check(len(shots) == 4 and all(read_png(p).shape == (576, 960, 3) for p in shots),
@@ -2512,10 +2525,10 @@ def overfit_phase(nms_cuda):
     report = {}
     text = []
     torch.cuda.synchronize()
-    nms_cuda.LAUNCHES = 0
+    reset_nms_launches()
     rc = overfit_smoke.main(report=report, log=text.append)
     torch.cuda.synchronize()
-    launches = nms_cuda.LAUNCHES
+    launches = nms_launches()
     ap = float(report["ap"][overfit_smoke.GT_CLASS - 1])
     check(rc == 0 and ap > overfit_smoke.AP_GATE,
           f"overfit_smoke on the card returned {rc}, AP[class 3] {ap}: {text}")
@@ -2556,7 +2569,7 @@ def pretrain_flow_phase(dev, nms_cuda, tmp):
     report = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    nms_cuda.LAUNCHES = 0
+    reset_nms_launches()
     rc = pretrain_flow.main(["--steps", str(steps), "--batch", "4", "--feat-dim", "1024",
                              "--videos", str(n_videos), "--frames", str(n_frames),
                              "--log-every", "10", "--out", str(out), "--data", str(tmp / "flow")],
@@ -2564,7 +2577,7 @@ def pretrain_flow_phase(dev, nms_cuda, tmp):
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated(dev)
     wall = time.perf_counter() - t0
-    check(rc == 0 and nms_cuda.LAUNCHES == 0, f"pretrain_flow: rc {rc}, {nms_cuda.LAUNCHES} "
+    check(rc == 0 and nms_launches() == 0, f"pretrain_flow: rc {rc}, {nms_launches()} "
                                               f"kernel launches")
     logged = report["logged"]
     check(all(np.isfinite(x) for _, a, b in logged for x in (a, b)), f"pretrain_flow {logged}")
@@ -2639,7 +2652,7 @@ def bn_allreduce_phase(dev, nms_cuda):
                  if k.endswith(("running_mean", "running_var"))}
         return metrics, params, stats
 
-    nms_cuda.LAUNCHES = 0
+    reset_nms_launches()
     plain = [step() for _ in range(2)]
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
@@ -2656,7 +2669,7 @@ def bn_allreduce_phase(dev, nms_cuda):
                 torch.distributed.destroy_process_group()
     finally:
         mesh.sum_over_ranks_with_grad = sums
-    launches = nms_cuda.LAUNCHES
+    launches = nms_launches()
     (m0, p0, s0), (_, p1, _) = plain
     check(len(reduced) == 3, f"the step entered the BatchNorms' all-reduce {len(reduced)} times")
     met_err = max(abs(dist_m[k] - m0[k]) / max(abs(m0[k]), 1e-12) for k in m0)
@@ -2700,10 +2713,10 @@ def bf16_params_phase(dev, nms_cuda):
     calibrate_input_bn(model)
     det = StreamingDetector(model, cfg, BUCKET)
     torch.cuda.synchronize()
-    nms_cuda.LAUNCHES = 0
+    reset_nms_launches()
     kd, kv, cd, cv = det.process_prepared_window(synth_gops(cfg, 1, 32), first=True)
     torch.cuda.synchronize()
-    launches = {"bf16_gop": nms_cuda.LAUNCHES}
+    launches = {"bf16_gop": nms_launches()}
     check(bool(torch.isfinite(kd).all() and torch.isfinite(cd).all()) and int(kv.sum()) > 0,
           "bf16 parameters: non-finite or no detections")
     check(launches["bf16_gop"] == 4, f"bf16 GOP: {launches['bf16_gop']} kernel launches")
@@ -2711,10 +2724,10 @@ def bf16_params_phase(dev, nms_cuda):
     batches = synthetic_train_batches(1, BUCKET, seed=32, num_classes=cfg.dataset.NUM_CLASSES,
                                       max_gt=cfg.tpu.max_gt_boxes, content_hw=CONTENT)
     before = {k: p.detach().clone() for k, p in model.named_parameters()}
-    nms_cuda.LAUNCHES = 0
+    reset_nms_launches()
     train_net(cfg, batches=batches, max_steps=1, model=model,
               metrics_hook=lambda s, m: metrics.append({k: float(v) for k, v in m.items()}))
-    launches["bf16_train"] = nms_cuda.LAUNCHES
+    launches["bf16_train"] = nms_launches()
     check(len(metrics) == 1 and all(np.isfinite(v) for v in metrics[0].values()),
           f"bf16 train step {metrics}")
     check({p.dtype for p in model.parameters()} == {torch.bfloat16}, "bf16 after the step")
@@ -2747,13 +2760,13 @@ def jpeg_eval_phase(dev, model, cfg, nms_cuda):
           "a JPEG record's MV or residual grid is not zero")
     calls = []
     torch.cuda.synchronize()
-    nms_cuda.LAUNCHES = 0
+    reset_nms_launches()
     t0 = time.perf_counter()
     with recorded_schedule(calls):
         dets = eval_videos(model, cfg, [rec], read_image=seeded_image, logger=Lines())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = nms_cuda.LAUNCHES
+    launches = nms_launches()
     check_detections("jpeg eval", dets, n)
     check([c["kind"] for c in calls] == ["frame"] * n
           and [c["flag"] for c in calls] == [0] + [2] * 11 + [1, 2],
@@ -2958,7 +2971,7 @@ def ladder_rung(name, argv, tool, data, nms_cuda, dev, steps, **openers):
     keep = {steps: "eval", **({steps - 1: "train"} if steps else {})}
 
     def recorded(boxes, valid, thresh, sweeps):
-        n = nms_cuda.LAUNCHES
+        n = nms_launches()
         alive, conv = kernel(boxes, valid, thresh, sweeps)
         if n in keep:
             seen[keep[n]] = (boxes.clone(), valid.clone(), thresh, sweeps, alive.clone())
@@ -2970,7 +2983,7 @@ def ladder_rung(name, argv, tool, data, nms_cuda, dev, steps, **openers):
     report = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    nms_cuda.LAUNCHES = 0
+    reset_nms_launches()
     nms_cuda.greedy_alive_cuda = recorded
     t0 = time.perf_counter()
     try:
@@ -2981,7 +2994,7 @@ def ladder_rung(name, argv, tool, data, nms_cuda, dev, steps, **openers):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     check(rc == 0, f"{name}: returned {rc}")
-    return report, nms_cuda.LAUNCHES, seen, feed.seen, torch.cuda.max_memory_allocated(dev), wall
+    return report, nms_launches(), seen, feed.seen, torch.cuda.max_memory_allocated(dev), wall
 
 
 def recorded_masks_equal(name, seen, greedy_alive):
@@ -3151,11 +3164,11 @@ def entry_phase(dev, nms_cuda):
     from lsfa_tpu_torch import entry
 
     torch.cuda.synchronize()
-    nms_cuda.LAUNCHES = 0
+    reset_nms_launches()
     fn, args = entry.entry()
     out = fn(*args)
     torch.cuda.synchronize()
-    launches = nms_cuda.LAUNCHES
+    launches = nms_launches()
     _, model = entry._flagship(device=dev)
     model.load_state_dict({k: args[0][k] for k in model.state_dict()})
     with torch.no_grad():
@@ -3210,10 +3223,10 @@ def counted(nms_cuda, fn):
     import torch
 
     torch.cuda.synchronize()
-    nms_cuda.LAUNCHES = 0
+    reset_nms_launches()
     out = fn()
     torch.cuda.synchronize()
-    return out, nms_cuda.LAUNCHES
+    return out, nms_launches()
 
 
 def tools_phase(dev, nms_cuda, greedy_alive):
@@ -3518,9 +3531,10 @@ def main():
     print(smi)
 
     # 2. build
+    t0 = time.perf_counter()
     nms_cuda.build()
     print(f"build: nvcc {' '.join(nms_cuda.NVCC_FLAGS)} nms_sweep.cu, "
-          f"{nms_cuda.BUILD_SECONDS:.2f} s (build or load of a cached build)")
+          f"{time.perf_counter() - t0:.2f} s (build or load of a cached build)")
 
     # 3. kernel vs plain, bit for bit
     max_err, shapes, checked = kernel_phase(dev, kernel_cases(np.random.default_rng(0)),
@@ -3533,7 +3547,7 @@ def main():
     det = StreamingDetector(model, cfg, BUCKET)
     payloads = synth_gops(cfg, 3, 1)
     torch.cuda.synchronize()
-    nms_cuda.LAUNCHES = 0
+    reset_nms_launches()
     gop_s, gop_enqueue = [], []
     syncs = 0
     outs = []
@@ -3552,7 +3566,7 @@ def main():
         if g > 0:                       # the warm-up GOP initializes cuDNN/cuBLAS
             syncs += sum("synchroniz" in str(w.message) for w in caught)
         outs.append(out)
-    launches = nms_cuda.LAUNCHES
+    launches = nms_launches()
     check(launches == 4 * len(payloads),
           f"the main path launched the NMS kernel {launches} times, not 4 per GOP")
     for kd, kv, cd, cv in outs:
@@ -3931,14 +3945,14 @@ def lane_loop(name, model, cfg, nms_cuda, lengths, lanes):
     base, n_frames = frame_bases(roidb)
     log, calls, metas = Lines(), [], []
     torch.cuda.synchronize()
-    nms_cuda.LAUNCHES = 0
+    reset_nms_launches()
     t0 = time.perf_counter()
     with recorded_schedule(calls), recorded_lanes(metas):
         dets = eval_videos_lanes(model, cfg, roidb, lanes=lanes, logger=log,
                                  open_video=open_video)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = nms_cuda.LAUNCHES
+    launches = nms_launches()
     check_detections(name, dets, n_frames)
     real = [(base[id(roidb[vi])] + fid) for meta in metas for vi, fid, r in meta if r]
     padding = sum(not r for meta in metas for _, _, r in meta)
@@ -4000,7 +4014,7 @@ def lanes_phase(dev, model, cfg, nms_cuda, greedy_alive, eval_dets):
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-        nms_cuda.LAUNCHES = 0
+        reset_nms_launches()
         t0 = time.perf_counter()
         prev = None
         for _ in range(LANE_WINDOWS):
@@ -4010,7 +4024,7 @@ def lanes_phase(dev, model, cfg, nms_cuda, greedy_alive, eval_dets):
             prev = out
         kd, kv, cd, cv = (o.cpu() for o in prev)
         wall = time.perf_counter() - t0
-        n = nms_cuda.LAUNCHES
+        n = nms_launches()
         check(n == 8 * LANE_WINDOWS, f"lanes B={b}: {n} kernel launches, not 4 per GOP")
         m = cfg.TEST.max_per_image
         check(tuple(kd.shape) == (2, b, m, 6) and tuple(cd.shape) == (2, GOP - 1, b, m, 6),
@@ -4334,10 +4348,10 @@ def tp_phase(dev, model, cfg, nms_cuda, greedy_alive):
         runs, counts = {}, []
         for name, det in (("plain", plain_det), ("tp", tp_det), ("plain2", plain_det),
                           ("tp2", tp_det)):
-            nms_cuda.LAUNCHES = 0
+            reset_nms_launches()
             runs[name] = tp_stream(det, payloads)
             if name.startswith("tp"):
-                counts.append(nms_cuda.LAUNCHES)
+                counts.append(nms_launches())
         (want, plain_ms), (got, tp_ms) = runs["plain"], runs["tp"]
         plain_ms2, tp_ms2 = runs["plain2"][1], runs["tp2"][1]
         check(counts == [4 * len(payloads)] * 2,
@@ -4590,13 +4604,17 @@ def long_ladder(argv):
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--tools"]:
-        tools_only()
-    elif sys.argv[1:] == ["--lanes"]:
-        lanes_only()
-    elif sys.argv[1:] == ["--tp"]:
-        tp_only()
-    elif len(sys.argv) > 1:
-        long_ladder(sys.argv[1:])
-    else:
-        main()
+    from lsfa_tpu_torch.utils.profiler import tracing
+
+    # the whole run counts: nms_launches() reads the recorder's nms.launches
+    with tracing() as REC:
+        if sys.argv[1:] == ["--tools"]:
+            tools_only()
+        elif sys.argv[1:] == ["--lanes"]:
+            lanes_only()
+        elif sys.argv[1:] == ["--tp"]:
+            tp_only()
+        elif len(sys.argv) > 1:
+            long_ladder(sys.argv[1:])
+        else:
+            main()

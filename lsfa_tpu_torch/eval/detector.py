@@ -16,6 +16,7 @@ from lsfa_tpu_torch.ops.boxes import bbox_pred, clip_boxes
 from lsfa_tpu_torch.ops.nms import nms_fixed
 from lsfa_tpu_torch.ops.proposal import rpn_proposals
 from lsfa_tpu_torch.ops.psroi_pool import psroi_pool
+from lsfa_tpu_torch.utils.profiler import count, span
 
 
 def postprocess_detections(cls_prob, bbox_deltas, rois, roi_valid, im_info,
@@ -77,20 +78,27 @@ def detect_batch(out, anchors, im_info, num_classes: int, pre_nms: int = 6000,
     batch dim B). im_info: (3,) shared across the batch, or (B, 3)."""
     fg = out["rpn_fg"]
     bsz = fg.shape[0]
-    im_info = im_info.float().reshape(-1, 3).expand(bsz, 3)
-    rois, _, roi_valid = rpn_proposals(
-        fg, out["rpn_deltas"], anchors, im_info, pre_nms_top_n=pre_nms,
-        post_nms_top_n=post_nms, nms_thresh=rpn_nms_thresh, min_size=min_size,
-        feat_stride=feat_stride, nms_tier=nms_tier)
-    pool = dict(group_size=group_size, pooled_size=group_size,
-                spatial_scale=1.0 / feat_stride)
-    pooled_cls = psroi_pool(out["rfcn_cls_map"], rois, num_classes, **pool)
-    pooled_bbox = psroi_pool(out["rfcn_bbox_map"], rois, 4 * num_reg_classes, **pool)
-    cls_prob = torch.softmax(pooled_cls.mean(dim=(2, 3)), dim=-1)
-    return postprocess_detections(
-        cls_prob, pooled_bbox.mean(dim=(2, 3)), rois, roi_valid, im_info,
-        num_classes=num_classes, max_per_image=max_per_image, nms_thresh=nms_thresh,
-        score_thresh=score_thresh, bbox_stds=bbox_stds, num_reg_classes=num_reg_classes)
+    count("detect.frames", bsz)
+    with span("detect"):
+        im_info = im_info.float().reshape(-1, 3).expand(bsz, 3)
+        with span("detect.proposals"):
+            rois, _, roi_valid = rpn_proposals(
+                fg, out["rpn_deltas"], anchors, im_info, pre_nms_top_n=pre_nms,
+                post_nms_top_n=post_nms, nms_thresh=rpn_nms_thresh, min_size=min_size,
+                feat_stride=feat_stride, nms_tier=nms_tier)
+        with span("detect.psroi"):
+            pool = dict(group_size=group_size, pooled_size=group_size,
+                        spatial_scale=1.0 / feat_stride)
+            pooled_cls = psroi_pool(out["rfcn_cls_map"], rois, num_classes, **pool)
+            pooled_bbox = psroi_pool(out["rfcn_bbox_map"], rois, 4 * num_reg_classes, **pool)
+            cls_prob = torch.softmax(pooled_cls.mean(dim=(2, 3)), dim=-1)
+            bbox_deltas = pooled_bbox.mean(dim=(2, 3))
+        with span("detect.classes"):
+            return postprocess_detections(
+                cls_prob, bbox_deltas, rois, roi_valid, im_info,
+                num_classes=num_classes, max_per_image=max_per_image, nms_thresh=nms_thresh,
+                score_thresh=score_thresh, bbox_stds=bbox_stds,
+                num_reg_classes=num_reg_classes)
 
 
 def detect_single(rpn_fg, rpn_deltas, cls_map, bbox_map, anchors, im_info, **kw):

@@ -16,6 +16,7 @@ from lsfa_tpu_torch.data.loader import to_device
 from lsfa_tpu_torch.eval.detector import anchors_for, detect_from_maps, detection_kwargs
 from lsfa_tpu_torch.models.lsfa import resolve_device
 from lsfa_tpu_torch.models.rfcn import RFCN
+from lsfa_tpu_torch.utils.profiler import span
 
 
 def rfcn_from_config(cfg, device=None) -> RFCN:
@@ -56,6 +57,7 @@ class RFCNDetector:
         device; im_info (1, 3) [h, w, scale]. Returns (dets (M, 6)
         [label, score, x1, y1, x2, y2] in original-image coordinates,
         valid (M,)), device tensors."""
-        out = self.model(to_device(data, self.device))
-        im_info = to_device(im_info, self.device, torch.float32).reshape(-1, 3)
-        return detect_from_maps(out, self.anchors, im_info[0], **self.det_kw)
+        with span("rfcn.detect", request=True):
+            out = self.model(to_device(data, self.device))
+            im_info = to_device(im_info, self.device, torch.float32).reshape(-1, 3)
+            return detect_from_maps(out, self.anchors, im_info[0], **self.det_kw)

@@ -26,6 +26,7 @@ import torch
 from lsfa_tpu_torch.data.image import small_pool_factor
 from lsfa_tpu_torch.data.loader import to_device
 from lsfa_tpu_torch.eval.detector import anchors_for, detect_batch, detection_kwargs
+from lsfa_tpu_torch.utils.profiler import count, span
 
 
 class StreamingDetector:
@@ -82,7 +83,10 @@ class StreamingDetector:
         return 2
 
     def _is_first(self, boot: bool):
-        """(B,) stream-start flags: all set when `boot` or under lt_off."""
+        """(B,) stream-start flags: all set when `boot` or under lt_off.
+        Counts the lanes a `boot` restarts (``stream.restarts``)."""
+        if boot:
+            count("stream.restarts", self.batch)
         return torch.full((self.batch,), 1.0 if boot or self.lt_off else 0.0,
                           device=self.device)
 
@@ -99,33 +103,34 @@ class StreamingDetector:
         Returns (key_dets (B, M, 6), key_valid (B, M), cur_dets (n, M, 6),
         cur_valid (n, M)); B lanes: cur_dets (n, B, M, 6), cur_valid
         (n, B, M). Device tensors."""
-        m = self.model
-        im_info = self._put(im_info, torch.float32).reshape(-1, 3)
-        kout = m.forward_key(self._put(key_frame), self.data_key, self.feat_key,
-                             self._is_first(first))
-        kd, kv = detect_batch(kout, self.anchors, im_info, **self.det_kw)
-        smalls = self._put(smalls)
-        mvs = self._put(motion_vectors, torch.float32)
-        ress = self._put(res_diffs, torch.float32)
-        feat = kout["feat"]
-        n = mvs.shape[0]
-        if mvs.dim() == 5:
-            # lanes: fold (n, B) n-major into one batch; frame i of lane l
-            # takes lane l's key feature, row i*B + l of the tiled one
-            b = mvs.shape[1]
-            cout = m.forward_cur(smalls.flatten(0, 1), feat.repeat(n, 1, 1, 1),
-                                 mvs.flatten(0, 1), ress.flatten(0, 1))
-            cd, cv = detect_batch(cout, self.anchors, im_info.expand(b, 3).repeat(n, 1),
-                                  **self.det_kw)
-            cd, cv = cd.unflatten(0, (n, b)), cv.unflatten(0, (n, b))
-        else:
-            fk = feat.expand((n,) + tuple(feat.shape[1:]))
-            cout = m.forward_cur(smalls, fk, mvs, ress)
-            cd, cv = detect_batch(cout, self.anchors, im_info[0], **self.det_kw)
-        self.feat_key = feat
-        self.data_key = kout["prep"]
-        self.frame_id += 1 + n
-        return kd, kv, cd, cv
+        with span("stream.gop"):
+            m = self.model
+            im_info = self._put(im_info, torch.float32).reshape(-1, 3)
+            kout = m.forward_key(self._put(key_frame), self.data_key, self.feat_key,
+                                 self._is_first(first))
+            kd, kv = detect_batch(kout, self.anchors, im_info, **self.det_kw)
+            smalls = self._put(smalls)
+            mvs = self._put(motion_vectors, torch.float32)
+            ress = self._put(res_diffs, torch.float32)
+            feat = kout["feat"]
+            n = mvs.shape[0]
+            if mvs.dim() == 5:
+                # lanes: fold (n, B) n-major into one batch; frame i of lane l
+                # takes lane l's key feature, row i*B + l of the tiled one
+                b = mvs.shape[1]
+                cout = m.forward_cur(smalls.flatten(0, 1), feat.repeat(n, 1, 1, 1),
+                                     mvs.flatten(0, 1), ress.flatten(0, 1))
+                cd, cv = detect_batch(cout, self.anchors, im_info.expand(b, 3).repeat(n, 1),
+                                      **self.det_kw)
+                cd, cv = cd.unflatten(0, (n, b)), cv.unflatten(0, (n, b))
+            else:
+                fk = feat.expand((n,) + tuple(feat.shape[1:]))
+                cout = m.forward_cur(smalls, fk, mvs, ress)
+                cd, cv = detect_batch(cout, self.anchors, im_info[0], **self.det_kw)
+            self.feat_key = feat
+            self.data_key = kout["prep"]
+            self.frame_id += 1 + n
+            return kd, kv, cd, cv
 
     def process_gops(self, key_frames, smalls, motion_vectors, res_diffs,
                      im_info, first: bool = False):
@@ -134,10 +139,11 @@ class StreamingDetector:
         Returns (key_dets (G, B, M, 6), key_valids, cur_dets (G, n, M, 6)
         or (G, n, B, M, 6), cur_valids) — the same as G sequential
         process_gop calls, which is what it runs."""
-        outs = [self.process_gop(key_frames[i], smalls[i], motion_vectors[i],
-                                 res_diffs[i], im_info, first=first and i == 0)
-                for i in range(len(key_frames))]
-        return tuple(torch.stack(o) for o in zip(*outs))
+        with span("stream.process_gops", request=True):
+            outs = [self.process_gop(key_frames[i], smalls[i], motion_vectors[i],
+                                     res_diffs[i], im_info, first=first and i == 0)
+                    for i in range(len(key_frames))]
+            return tuple(torch.stack(o) for o in zip(*outs))
 
     def process_prepared_window(self, payloads, first: bool = False):
         """A window of prepared GOP payloads, each the tuple

@@ -33,6 +33,7 @@ from lsfa_tpu_torch.models.layers import Conv, Deconv2x, FrozenBN
 from lsfa_tpu_torch.models.resnet import DeformConv2d, ResNetBackbone
 from lsfa_tpu_torch.models.rfcn import RFCNBase, nchw as _nchw, nhwc as _nhwc
 from lsfa_tpu_torch.ops.warp import flow_warp
+from lsfa_tpu_torch.utils.profiler import count, span
 
 
 def _warp(feat, flow):
@@ -132,30 +133,34 @@ class LSFA(RFCNBase):
         one by the Nq-net (or averaged). NCHW."""
         if not self.add_lt_aggregation:
             return fresh_feat
-        flow, scale_map = self.flownet(img_cur, img_old)
-        warped = _warp(old_feat, flow) * scale_map
-        if self.aggregator is not None:
-            return getattr(self, self.aggregator)(warped, fresh_feat)
-        return 0.5 * (warped + fresh_feat)
+        with span("model.long_term"):
+            flow, scale_map = self.flownet(img_cur, img_old)
+            warped = _warp(old_feat, flow) * scale_map
+            if self.aggregator is not None:
+                return getattr(self, self.aggregator)(warped, fresh_feat)
+            return 0.5 * (warped + fresh_feat)
 
     def short_term_propagate(self, key_feat, motion_vector, res_diff, small_img):
         """MV warp + R-net residual (added, or concatenated [warped,
         residual] and reduced by fuse_downsample) + the F-net + small-net
         fusion. NCHW; small_img is the preprocessed, already downscaled
         frame."""
-        fused = _warp(key_feat, motion_vector)
+        with span("model.mv_warp"):
+            fused = _warp(key_feat, motion_vector)
         if self.add_rnet:
-            r = self.rnet(res_diff)
-            if self.fuse_type == "add":
-                fused = fused + r
-            else:
-                fused = self.fuse_downsample(torch.cat([fused, r], dim=1))
+            with span("model.rnet"):
+                r = self.rnet(res_diff)
+                if self.fuse_type == "add":
+                    fused = fused + r
+                else:
+                    fused = self.fuse_downsample(torch.cat([fused, r], dim=1))
         if self.fnet is not None:
             fused = self.fnet(fused)
         if self.add_small_net:
-            parts = self.small_net_backbone(small_img)
-            small_feat = parts[0] if self.small_net_stride == 4 else parts[1]
-            fused = self.small_fuse(fused, small_feat)
+            with span("model.small_net"):
+                parts = self.small_net_backbone(small_img)
+                small_feat = parts[0] if self.small_net_stride == 4 else parts[1]
+                fused = self.small_fuse(fused, small_feat)
         return fused
 
     # ------- phase graphs -------
@@ -165,27 +170,31 @@ class LSFA(RFCNBase):
         the cached preprocessed previous key frame (B, H, W, 3) float32;
         feat_key_old: (B, fh, fw, feat_dim) float32; is_first (B,): where
         > 0 the fresh feature replaces the cached one (stream start)."""
-        data = self.preprocess(data)
-        b = data.shape[0]
-        x = _nchw(data)
-        fresh = self.conv_feat(x)
-        first = (is_first > 0).reshape(b, 1, 1, 1)
-        old = torch.where(first, fresh, _nchw(feat_key_old))
-        prop = self.long_term_aggregate(fresh, old, x, _nchw(data_key_old))
-        # the key-feature carry is float32 by design
-        feat = torch.where(first, fresh, prop).float()
-        out = self.detection_maps(feat)
-        out["prep"] = data
-        return out
+        count("model.frames.key", data.shape[0])
+        with span("model.forward_key"):
+            data = self.preprocess(data)
+            b = data.shape[0]
+            x = _nchw(data)
+            fresh = self.conv_feat(x)
+            first = (is_first > 0).reshape(b, 1, 1, 1)
+            old = torch.where(first, fresh, _nchw(feat_key_old))
+            prop = self.long_term_aggregate(fresh, old, x, _nchw(data_key_old))
+            # the key-feature carry is float32 by design
+            feat = torch.where(first, fresh, prop).float()
+            out = self.detection_maps(feat)
+            out["prep"] = data
+            return out
 
     def forward_cur(self, small_img, feat_key, motion_vector, res_diff):
         """Non-key inference: small_img is the raw 1/small_net_stride frame;
         feat_key (B, fh, fw, feat_dim); motion_vector (B, fh, fw, 2) as
         (dx, dy); res_diff (B, fh, fw, 3)."""
-        feat = self.short_term_propagate(
-            _nchw(feat_key), _nchw(motion_vector), _nchw(res_diff),
-            _nchw(self.preprocess(small_img)))
-        return self.detection_maps(feat)
+        count("model.frames.cur", small_img.shape[0])
+        with span("model.forward_cur"):
+            feat = self.short_term_propagate(
+                _nchw(feat_key), _nchw(motion_vector), _nchw(res_diff),
+                _nchw(self.preprocess(small_img)))
+            return self.detection_maps(feat)
 
     def forward_train(self, data, data_ref, data_ref_old, eq_flag, eq_flag_old,
                       motion_vector, res_diff):

@@ -26,6 +26,7 @@ from torch import nn
 from lsfa_tpu_torch.models.layers import Conv
 from lsfa_tpu_torch.models.mobilenet import MobileNetV2Backbone, MobileNetV2HobotBackbone
 from lsfa_tpu_torch.models.resnet import ResNetBackbone
+from lsfa_tpu_torch.utils.profiler import count, span
 
 
 NETTYPES = ("resnet", "mobilenet", "mobilenet_hobot")
@@ -103,7 +104,8 @@ class RFCNBase(nn.Module):
 
     def conv_feat(self, ims):
         """Backbone + dilated 3x3 -> the feature (NCHW)."""
-        return torch.relu(self.feat_conv_3x3(self.backbone(ims)[-1]))
+        with span("model.trunk"):
+            return torch.relu(self.feat_conv_3x3(self.backbone(ims)[-1]))
 
     def rpn_fg_probs(self, cls_logits):
         """Per-anchor fg probability from NHWC [bg A | fg A] logits."""
@@ -132,9 +134,10 @@ class RFCNBase(nn.Module):
     def detection_maps(self, feat):
         """NCHW feature -> the inference output dict (NHWC): the feature,
         fg probabilities, decoded deltas and the R-FCN maps."""
-        maps = self.head_maps(feat)
-        return {"feat": nhwc(feat), "rpn_fg": self.rpn_fg_probs(maps.pop("rpn_cls")),
-                "rpn_deltas": self.rpn_decode_deltas(maps.pop("rpn_bbox")), **maps}
+        with span("model.heads"):
+            maps = self.head_maps(feat)
+            return {"feat": nhwc(feat), "rpn_fg": self.rpn_fg_probs(maps.pop("rpn_cls")),
+                    "rpn_deltas": self.rpn_decode_deltas(maps.pop("rpn_bbox")), **maps}
 
 
 class RFCN(RFCNBase):
@@ -159,8 +162,11 @@ class RFCN(RFCNBase):
         the NHWC feature (compute dtype), raw RPN logits and deltas
         (rpn_cls, rpn_bbox), fg probabilities and decoded deltas (rpn_fg,
         rpn_deltas), all float32, and the R-FCN maps."""
-        feat = self.conv_feat(nchw(self.preprocess(data)))
-        out = {"feat": nhwc(feat), **self.head_maps(feat)}
-        out.update(rpn_fg=self.rpn_fg_probs(out["rpn_cls"]),
-                   rpn_deltas=self.rpn_decode_deltas(out["rpn_bbox"]))
-        return out
+        count("model.frames.rfcn", data.shape[0])
+        with span("model.forward"):
+            feat = self.conv_feat(nchw(self.preprocess(data)))
+            with span("model.heads"):
+                out = {"feat": nhwc(feat), **self.head_maps(feat)}
+                out.update(rpn_fg=self.rpn_fg_probs(out["rpn_cls"]),
+                           rpn_deltas=self.rpn_decode_deltas(out["rpn_bbox"]))
+            return out

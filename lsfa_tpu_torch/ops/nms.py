@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from lsfa_tpu_torch.ops import nms_cuda
+from lsfa_tpu_torch.utils.profiler import count, span
 
 
 def suppression_matrix(boxes, iou_thresh: float):
@@ -94,36 +95,40 @@ def nms_fixed(boxes, scores, iou_thresh: float, max_out: int, valid=None,
     (the keep set then equals sequential greedy NMS).
     """
     bsz, n = scores.shape
-    dev = boxes.device
-    if max_iters is None:
-        max_iters = min(n, 31)
-    if valid is None:
-        valid = torch.ones((bsz, n), dtype=torch.bool, device=dev)
-    if presorted:
-        order = torch.arange(n, device=dev).expand(bsz, n)
-        b, v = boxes, valid
-    else:
-        masked = torch.where(valid, scores, torch.full_like(scores, float("-inf")))
-        order = torch.argsort(-masked, dim=-1, stable=True)
-        b = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
-        v = torch.gather(valid, 1, order)
+    count("nms.calls")
+    count("nms.boxes", bsz * n)
+    count("nms.pairs", bsz * n * (n - 1) // 2)
+    with span("nms"):
+        dev = boxes.device
+        if max_iters is None:
+            max_iters = min(n, 31)
+        if valid is None:
+            valid = torch.ones((bsz, n), dtype=torch.bool, device=dev)
+        if presorted:
+            order = torch.arange(n, device=dev).expand(bsz, n)
+            b, v = boxes, valid
+        else:
+            masked = torch.where(valid, scores, torch.full_like(scores, float("-inf")))
+            order = torch.argsort(-masked, dim=-1, stable=True)
+            b = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
+            v = torch.gather(valid, 1, order)
 
-    got = _alive(b, v, iou_thresh, max_iters, return_converged)
-    alive, converged = got if return_converged else (got, None)
+        got = _alive(b, v, iou_thresh, max_iters, return_converged)
+        alive, converged = got if return_converged else (got, None)
 
-    # slot(i) = #alive with rank < i; alive rank i writes itself to slot(i),
-    # every other rank to the dump slot max_out
-    slot = torch.cumsum(alive.long(), dim=-1) - 1
-    tgt = torch.where(alive & (slot < max_out), slot, torch.full_like(slot, max_out))
-    kept_pos = torch.full((bsz, max_out + 1), -1, dtype=torch.long, device=dev)
-    kept_pos.scatter_(1, tgt, torch.arange(n, device=dev).expand(bsz, n))
-    kept_pos = kept_pos[:, :max_out]
-    keep_valid = kept_pos >= 0
-    num_kept = keep_valid.sum(dim=-1, keepdim=True)
-    last = torch.gather(kept_pos, 1, (num_kept - 1).clamp(min=0))
-    last = torch.where(num_kept > 0, last, torch.zeros_like(last))
-    kept_pos = torch.where(keep_valid, kept_pos, last)
-    keep_idx = torch.gather(order, 1, kept_pos)
-    if return_converged:
-        return keep_idx, keep_valid, converged
-    return keep_idx, keep_valid
+        # slot(i) = #alive with rank < i; alive rank i writes itself to slot(i),
+        # every other rank to the dump slot max_out
+        slot = torch.cumsum(alive.long(), dim=-1) - 1
+        tgt = torch.where(alive & (slot < max_out), slot, torch.full_like(slot, max_out))
+        kept_pos = torch.full((bsz, max_out + 1), -1, dtype=torch.long, device=dev)
+        kept_pos.scatter_(1, tgt, torch.arange(n, device=dev).expand(bsz, n))
+        kept_pos = kept_pos[:, :max_out]
+        keep_valid = kept_pos >= 0
+        num_kept = keep_valid.sum(dim=-1, keepdim=True)
+        last = torch.gather(kept_pos, 1, (num_kept - 1).clamp(min=0))
+        last = torch.where(num_kept > 0, last, torch.zeros_like(last))
+        kept_pos = torch.where(keep_valid, kept_pos, last)
+        keep_idx = torch.gather(order, 1, kept_pos)
+        if return_converged:
+            return keep_idx, keep_valid, converged
+        return keep_idx, keep_valid

@@ -22,11 +22,12 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 
 import numpy as np
 import torch
+
+from lsfa_tpu_torch.utils.profiler import count
 
 PKG = Path(__file__).resolve().parents[1]
 SOURCE = PKG / "csrc" / "nms_sweep.cu"
@@ -43,10 +44,7 @@ PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 FLOPS_PER_PAIR = 16     # two extents 8, intersection 3, union and clamp 3, divide 1, compare 1
 
-# launches of the kernel since the last reset (one per wrapper call)
-LAUNCHES = 0
 _lib = None
-BUILD_SECONDS = None    # wall time of the build (or load) in this process
 
 
 @functools.lru_cache(maxsize=64)
@@ -104,10 +102,9 @@ def _nvcc() -> str:
 
 def build() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
-    global _lib, BUILD_SECONDS
+    global _lib
     if _lib is not None:
         return _lib
-    t0 = time.perf_counter()
     digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
     lib_path = BUILD_DIR / f"libnms_sweep_{digest[:16]}.so"
     if not lib_path.exists():
@@ -128,7 +125,6 @@ def build() -> ctypes.CDLL:
     lib.nms_sweep_cluster_size.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.nms_sweep_cluster_size.restype = ctypes.c_int
     _lib = lib
-    BUILD_SECONDS = time.perf_counter() - t0
     return lib
 
 
@@ -147,8 +143,8 @@ def greedy_alive_cuda(boxes, valid, iou_thresh: float, num_sweeps: int):
     """The NMS fixpoint on the card. boxes (B, N, 4) float32 contiguous,
     rank-sorted; valid (B, N) bool contiguous, on the same CUDA device.
     Returns (alive (B, N) bool, converged (B,) bool), enqueued on the
-    current stream without synchronizing."""
-    global LAUNCHES
+    current stream without synchronizing. Each launch adds one to the
+    ``nms.launches`` counter (``utils.profiler.count``)."""
     if not boxes.is_cuda or valid.device != boxes.device:
         raise ValueError(f"boxes and valid must share one CUDA device, got "
                          f"{boxes.device} and {valid.device}")
@@ -181,5 +177,5 @@ def greedy_alive_cuda(boxes, valid, iou_thresh: float, num_sweeps: int):
                                torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"nms_sweep launch failed with CUDA error {err}")
-    LAUNCHES += 1
+    count("nms.launches")
     return out[:bsz * n].view(bsz, n), out[bsz * n:]

@@ -451,9 +451,8 @@ def lanes_worker(rank: int, world: int, port: int, job_path: str, out_dir: str):
 
     from lsfa_tpu_torch.eval.driver import eval_videos_lanes
     from lsfa_tpu_torch.models.lsfa import lsfa_from_config
-    from lsfa_tpu_torch.ops import nms_cuda
     from lsfa_tpu_torch.parallel import mesh
-    from lsfa_tpu_torch.utils.profiler import sync
+    from lsfa_tpu_torch.utils.profiler import sync, tracing
 
     job = torch.load(job_path, weights_only=False)
     torch.set_num_threads(job["threads"])
@@ -474,14 +473,15 @@ def lanes_worker(rank: int, world: int, port: int, job_path: str, out_dir: str):
 
         # on a card, an untimed pass first: cuDNN's first use of the shapes
         passes = 2 if dev.type == "cuda" else 1
-        nms_cuda.LAUNCHES = 0
-        for _ in range(passes - 1):
-            run()
-        sync(dev)
-        t0 = time.perf_counter()
-        dets, stats = run()
-        sync(dev)
-        torch.save({"dets": dets, "stats": stats, "launches": nms_cuda.LAUNCHES,
+        with tracing() as rec:
+            for _ in range(passes - 1):
+                run()
+            sync(dev)
+            t0 = time.perf_counter()
+            dets, stats = run()
+            sync(dev)
+        torch.save({"dets": dets, "stats": stats,
+                    "launches": rec.counters.get("nms.launches", 0),
                     "passes": passes, "seconds": time.perf_counter() - t0},
                    os.path.join(out_dir, f"lanes_rank{rank}.pt"))
     finally:

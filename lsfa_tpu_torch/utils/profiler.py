@@ -1,12 +1,25 @@
-"""Throughput and phase timing; the counterparts of
-``lsfa_tpu.utils.profiler``'s `Speedometer` (the train loop's log line,
-dff_rfcn/core/callback.py:19-51), `PhaseTimer` (the evaluation loops'
-data/net/post breakdown) and `trace` (a device profile of a region)."""
+"""Throughput, phase timing, and the program's spans and counters; the
+counterparts of ``lsfa_tpu.utils.profiler``'s `Speedometer` (the train
+loop's log line, dff_rfcn/core/callback.py:19-51), `PhaseTimer` (the
+evaluation loops' data/net/post breakdown) and `trace` (a device profile
+of a region).
+
+Spans and counters: the port marks each layer's work with `span(name)`
+(stream driver ``stream.*`` and ``rfcn.detect``, model step ``model.*``,
+detection ``detect*``, kernel ``nms``) and counts what the host already
+knows with `count(name, n)`. Both do nothing until `tracing()` turns
+recording on; inside it a span keeps its name, host start and end
+(``time.perf_counter_ns``), parent and request, and, while a
+``torch.profiler`` is recording, is also a ``record_function`` range, so
+the profiler's trace holds it on the device trace's clock.
+"""
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
+import threading
 import time
 
 import torch
@@ -51,9 +64,12 @@ class PhaseTimer:
 
     @contextlib.contextmanager
     def phase(self, name: str):
+        """Times the block into `totals[name]`; under `tracing()` it is also
+        the span ``eval.<name>``."""
         t0 = time.perf_counter()
         try:
-            yield
+            with span(f"eval.{name}"):
+                yield
         finally:
             self.totals[name] = self.totals.get(name, 0.0) + time.perf_counter() - t0
 
@@ -67,19 +83,137 @@ class PhaseTimer:
         return f"per-tick: {' '.join(parts)} over {self.count} ticks"
 
 
+class Span:
+    """One span, and the context manager that records it: its name, host
+    start and end (perf_counter_ns), the enclosing span of its thread
+    (`parent`, None at the top) and the id of the request it belongs to
+    (None outside any request)."""
+
+    __slots__ = ("name", "start_ns", "end_ns", "parent", "request", "_rec", "_stack", "_range")
+
+    def __init__(self, rec, name, request):
+        self.name, self._rec, self._range = name, rec, None
+        self.start_ns = self.end_ns = self.parent = None
+        self.request = request          # until it opens: whether it starts a request
+
+    def __enter__(self):
+        rec = self._rec
+        stack = self._stack = rec.stack()
+        parent = self.parent = stack[-1] if stack else None
+        if self.request:
+            self.request = next(rec._requests)
+        else:
+            self.request = parent.request if parent is not None else None
+        rec.spans.append(self)
+        stack.append(self)
+        # a range only where a profiler records: it costs microseconds
+        if torch.autograd._profiler_enabled():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        self.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.end_ns = time.perf_counter_ns()
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+        self._stack.pop()
+        return None
+
+    def __repr__(self):
+        return (f"Span({self.name!r}, {self.start_ns}, {self.end_ns}, "
+                f"parent={self.parent.name if self.parent else None}, request={self.request})")
+
+
+class Recorder:
+    """What one `tracing()` region recorded: `spans` in the order they
+    opened and `counters` (name -> sum)."""
+
+    def __init__(self):
+        self.spans: list = []
+        self.counters: dict = {}
+        self._requests = itertools.count()
+        self._lock = threading.Lock()
+        self._local = threading.local()
+
+    def stack(self) -> list:
+        """The calling thread's open spans, innermost last."""
+        st = getattr(self._local, "stack", None)
+        if st is None:
+            st = self._local.stack = []
+        return st
+
+
+# the recorder of the open `tracing()` region; None while tracing is off
+_RECORDER: Recorder | None = None
+
+
+class _Off:
+    """The span while tracing is off: one shared instance, no state."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, exc_type, exc, tb):
+        return None
+
+
+_OFF = _Off()
+
+
+def span(name: str, request: bool = False):
+    """A context manager marking a block of the program as the span `name`.
+    With `request` it is an entry's span and starts a new request id;
+    other spans belong to their parent's request. Off (outside
+    `tracing()`), it is one shared no-op context."""
+    rec = _RECORDER
+    if rec is None:
+        return _OFF
+    return Span(rec, name, request)
+
+
+def count(name: str, n: int = 1):
+    """Adds `n` to the counter `name` while tracing is on."""
+    rec = _RECORDER
+    if rec is not None:
+        with rec._lock:
+            rec.counters[name] = rec.counters.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def tracing():
+    """Turns spans and counters on for the region and yields its
+    `Recorder`, to be read once the region ends. Inside an open region it
+    yields that region's recorder and leaves recording on."""
+    global _RECORDER
+    if _RECORDER is not None:
+        yield _RECORDER
+        return
+    rec = _RECORDER = Recorder()
+    try:
+        yield rec
+    finally:
+        _RECORDER = None
+
+
 @contextlib.contextmanager
 def trace(log_dir: str = "lsfa_trace"):
     """Profile the region with ``torch.profiler`` (the CPU, and CUDA where
-    a card is present) and export a Chrome trace (``trace.json``, open it
-    in chrome://tracing or Perfetto) into log_dir; the counterpart of JAX's
-    ``jax.profiler`` trace. Yields the profiler (``key_averages()``)."""
+    a card is present) under `tracing()`, and export a Chrome trace
+    (``trace.json``, open it in chrome://tracing or Perfetto) into log_dir,
+    which then holds the program's spans as ranges; the counterpart of
+    JAX's ``jax.profiler`` trace. Yields the profiler (``key_averages()``);
+    ``with tracing() as rec, trace(log_dir) as prof`` gives the recorder
+    too."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with tracing(), profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 

@@ -17,6 +17,7 @@ import torch
 from chip_smoke import knife_edge_boxes
 from lsfa_tpu_torch.ops import nms_cuda
 from lsfa_tpu_torch.ops.nms import greedy_alive, nms_fixed
+from lsfa_tpu_torch.utils.profiler import tracing
 
 
 @pytest.fixture
@@ -83,10 +84,10 @@ def test_kernel_equals_plain(cuda_device, case):
     boxes, valid, thresh, sweeps = cases()[case]
     b = torch.from_numpy(boxes).to(cuda_device)
     v = torch.from_numpy(valid).to(cuda_device)
-    before = nms_cuda.LAUNCHES
-    got, conv = nms_cuda.greedy_alive_cuda(b, v, thresh, sweeps)
+    with tracing() as rec:
+        got, conv = nms_cuda.greedy_alive_cuda(b, v, thresh, sweeps)
     want, want_conv = greedy_alive(b, v, thresh, sweeps, with_converged=True)
-    assert nms_cuda.LAUNCHES == before + 1
+    assert rec.counters.get("nms.launches", 0) == 1
     assert torch.equal(got, want)
     assert torch.equal(conv, want_conv)
 
@@ -124,10 +125,10 @@ def test_nms_fixed_on_card_equals_cpu(cuda_device):
     scores = torch.from_numpy(rng.uniform(size=(30, 300)).astype(np.float32))
     valid = scores > 0.1
     want = nms_fixed(boxes, scores, 0.3, 100, valid=valid, return_converged=True)
-    before = nms_cuda.LAUNCHES
-    got = nms_fixed(boxes.to(cuda_device), scores.to(cuda_device), 0.3, 100,
-                    valid=valid.to(cuda_device), return_converged=True)
-    assert nms_cuda.LAUNCHES == before + 1
+    with tracing() as rec:
+        got = nms_fixed(boxes.to(cuda_device), scores.to(cuda_device), 0.3, 100,
+                        valid=valid.to(cuda_device), return_converged=True)
+    assert rec.counters.get("nms.launches", 0) == 1
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
 
