@@ -282,11 +282,24 @@ Phases, each printing one line before the last:
      loop in this process and frames/s of the ranks against the 4- and
      2-lane loops. Then entry.dryrun_multichip(2) on the CPU, as the hook
      is defined (its lane-sharded evaluation included).
+ 40. the frozen-BatchNorm kernel (ops/bn_cuda.py), right after phase 3:
+     at the trunk's largest maps (BN_SHAPES: 256 channels at 152x256 and
+     1024 at 38x64 with scale and ReLU, and bn_data's 3 channels at
+     608x1024 without; B = 1 and 8, bf16 channels-last) its output
+     against the plain chain's and float64's within `bn_compare`'s
+     tolerances, one kernel per call (CUDA graph); per call, device time
+     against the bound (4 bytes an element at 3.35 TB/s) and against an
+     empty kernel on the same grid, and host cost of one call, each beside
+     the plain chain's (`library_ms`). The kernels line counts its launches
+     over the paths `bn_record` checks or records (``bn.fused``): 113 a GOP
+     on the streaming path (phase 4) and the lanes (phase 37), 102 a frame
+     on R-FCN serving (phase 8), none plain; phase 40's own calls in none.
 `python3 chip_smoke.py --ladder STEPS --out DIR` runs phase 34 alone with
 a real step budget (`long_ladder`); `python3 chip_smoke.py --tools` runs
 phase 36 alone (`tools_only`); `python3 chip_smoke.py --lanes` runs phase
 3 at the lane shapes, phase 37 and phase 39 (`lanes_only`); `python3
-chip_smoke.py --tp` runs phase 38 alone (`tp_only`).
+chip_smoke.py --tp` runs phase 38 alone (`tp_only`); `python3 chip_smoke.py
+--bn` runs phase 40 alone (`bn_only`).
 Then the script's seconds, one JSON line for the kernels and, last, the
 result line. Any failed phase exits non-zero before the result line is
 printed.
@@ -340,6 +353,38 @@ def nms_launches() -> int:
 
 def reset_nms_launches():
     REC.counters["nms.launches"] = 0
+
+
+# the FrozenBN calls of each path, {"fused": n, "plain": m} by `bn_record`:
+# the kernels line's frozen_bn launches are the sum over them, so phase
+# 40's own calls and the profiled windows count in none
+BN_BY_PATH = {}
+TRUNK_BNS, SMALL_NET_BNS = 102, 11      # the full-width ResNet-101 trunk, the small net
+
+
+def bn_calls():
+    """The recorder's (``bn.fused``, ``bn.plain``) so far: FrozenBN calls
+    that took the kernel, and that ran the plain chain."""
+    return REC.counters.get("bn.fused", 0), REC.counters.get("bn.plain", 0)
+
+
+def bn_record(path, start, fused=None):
+    """Records under BN_BY_PATH[path] the FrozenBN calls since `start` (a
+    `bn_calls()`); with `fused`, checks that the path took the kernel that
+    many times and the plain chain never."""
+    (f0, p0), (f1, p1) = start, bn_calls()
+    BN_BY_PATH[path] = {"fused": f1 - f0, "plain": p1 - p0}
+    if fused is not None:
+        check(BN_BY_PATH[path] == {"fused": fused, "plain": 0},
+              f"{path}: FrozenBN calls {BN_BY_PATH[path]}, not {fused} fused and 0 plain")
+
+
+def bn_run(path, fn, *args, **kwargs):
+    """fn(*args, **kwargs), its FrozenBN calls recorded under `path`."""
+    start = bn_calls()
+    out = fn(*args, **kwargs)
+    bn_record(path, start)
+    return out
 
 
 def cuda_ms(fn, reps=20):
@@ -644,6 +689,171 @@ def kernel_phase(dev, cases, nms_cuda, greedy_alive):
     return max_err, shapes, checked
 
 
+# phase 40: the frozen-BatchNorm kernel alone at the trunk's largest maps of
+# a 608x1024 frame (stage 1's bn1 input, 256 channels at 152x256, and stage
+# 3's, 1024 at 38x64: scale and ReLU) and on the frame itself (bn_data: 3
+# channels, neither), at B = 1 and 8, bf16 channels-last: (B, C, H, W,
+# scale and ReLU)
+BN_SHAPES = ((1, 256, 152, 256, True), (8, 256, 152, 256, True), (1, 1024, 38, 64, True),
+             (8, 1024, 38, 64, True), (1, 3, 608, 1024, False), (8, 3, 608, 1024, False))
+BN_COLD_BYTES = 4 * 50 * 2 ** 20      # 4x the H100's L2: the timed calls read from memory
+BN_HOST_CALLS = 50
+
+
+def bn_compare(x, got, want, mean, var, weight, bias, eps, relu):
+    """(share of bit-equal elements, largest |got - want| over its
+    tolerance, largest |got - exact| over its tolerance) of the
+    frozen-BatchNorm kernel's output `got` against the plain chain's
+    `want` and against the affine worked out in float64 (`exact`), k =
+    weight / sqrt(var + eps).
+
+    The kernel rounds var + eps, its sqrt, 1 / sqrt, the scale k, d = x -
+    mean and d k + beta (one FMA), each by at most a unit roundoff: it lies
+    within 5.5 float32 ulps of |d k| + |beta| of the exact value, held at
+    6. The plain chain (cuDNN's grouping is not documented; x k + (beta -
+    mean k) is one) lies within a like bound of the largest term it may
+    add, |x k|, |mean k|, |beta| or |y|: against it the kernel is held at
+    12 such ulps, the two bounds together (7 read on the card). bf16
+    outputs: half a bf16 ulp more against the exact value, one against
+    the plain chain."""
+    import torch
+
+    def ulp(v, bits):
+        _, e = torch.frexp(v.abs().float().clamp_min(2.0 ** -126))
+        return torch.ldexp(torch.ones_like(e, dtype=torch.float32), e - bits)
+
+    shape = (-1,) + (1,) * (x.dim() - 2)
+    k = var.double().add(eps).rsqrt()
+    if weight is not None:
+        k = k * weight.double()
+    k, m, b = (t.view(shape) for t in (k, mean.double(), bias.double()))
+    xd = x.double()
+    exact = (xd - m) * k + b
+    to_exact = 6 * ulp(((xd - m) * k).abs() + b.abs(), 24)
+    if relu:
+        exact = exact.clamp_min(0.0)
+    g, w = got.float(), want.float()
+    term = (xd * k).abs().maximum((m * k).abs()).maximum(b.abs()).maximum(exact.abs())
+    to_plain = 12 * ulp(term, 24)
+    bits = torch.int32
+    if got.dtype == torch.bfloat16:
+        to_plain = to_plain + ulp(g.abs().maximum(w.abs()), 8)
+        to_exact = to_exact + 0.5 * ulp(g.abs().maximum(exact.abs().float()), 8)
+        bits = torch.int16
+    share = float((got.view(bits) == want.view(bits)).float().mean())
+    return (share, float(((g - w).abs() / to_plain).max()),
+            float(((got.double() - exact).abs() / to_exact).max()))
+
+
+def bn_phase(dev):
+    """Phase 40: the frozen-BatchNorm kernel (ops/bn_cuda.py) at BN_SHAPES
+    against the plain chain (upcast, F.batch_norm, cast, ReLU: what
+    FrozenBN ran on the card before it, `library_ms`): outputs within
+    `bn_compare`'s tolerances, one kernel per call and the plain chain's
+    kernels (CUDA graphs); per call
+    (CUDA events around one call, median of 20), device time (profiler,
+    mean over a rotation of inputs 4x the L2) against the bound of 4 bytes
+    an element at 3.35 TB/s and beside the device time of an empty kernel
+    launched on the same grid (the launch's own floor), and one call's host
+    cost (host clock over BN_HOST_CALLS calls, profiler off). Returns the
+    kernel's entry of the kernels line."""
+    import itertools
+
+    import torch
+
+    from lsfa_tpu_torch.models.layers import BN_EPS
+    from lsfa_tpu_torch.ops import bn_cuda
+
+    t0 = time.perf_counter()
+    bn_cuda.build()
+    print(f"build: nvcc {' '.join(bn_cuda.NVCC_FLAGS)} frozen_bn.cu, "
+          f"{time.perf_counter() - t0:.2f} s (build or load of a cached build)")
+    g = torch.Generator(device=dev).manual_seed(40)
+    shapes = []
+    for b, c, h, w, relu in BN_SHAPES:
+        mean = torch.randn(c, generator=g, device=dev)
+        var = 0.25 + 2.0 * torch.rand(c, generator=g, device=dev)
+        scale = 0.5 + torch.rand(c, generator=g, device=dev) if relu else None
+        params = (mean, var, scale, 0.3 * torch.randn(c, generator=g, device=dev), BN_EPS)
+        copies = max(2, -(-BN_COLD_BYTES // (b * c * h * w * 2)))
+        xs = [(torch.randn((b, h, w, c), generator=g, device=dev) * var.sqrt() + mean)
+              .bfloat16().permute(0, 3, 1, 2) for _ in range(copies)]
+
+        def fused(x):
+            return bn_cuda.frozen_bn_cuda(x, *params, relu=relu, dtype=torch.bfloat16)
+
+        def plain(x):
+            return bn_cuda.frozen_bn_plain(x, *params, relu=relu, dtype=torch.bfloat16)
+
+        got, want = fused(xs[0]), plain(xs[0])
+        torch.cuda.synchronize()
+        share, worst, off_exact = bn_compare(xs[0], got, want, *params, relu)
+        check(max(worst, off_exact) <= 1.0,
+              f"frozen_bn {(b, c, h, w)}: kernel off the plain chain by {worst:.3f} of the "
+              f"tolerance, off float64 by {off_exact:.3f}")
+        kernels, _ = graph_kernels(lambda: fused(xs[0]))
+        plain_kernels, _ = graph_kernels(lambda: plain(xs[0]))
+        check(kernels == 1, f"frozen_bn {(b, c, h, w)}: one call captured {kernels} kernels")
+        del got, want
+        turn = itertools.cycle(xs)
+        ms = cuda_ms(lambda: fused(next(turn)))
+        library_ms = cuda_ms(lambda: plain(next(turn)))
+        _, dev_us = device_kernels(lambda: fused(next(turn)), copies)
+        _, lib_dev_us = device_kernels(lambda: plain(next(turn)), copies)
+        _, floor_us = device_kernels(lambda: bn_cuda.frozen_bn_cuda(
+            next(turn), *params, relu=relu, dtype=torch.bfloat16, empty=True), copies)
+        host_us = {}
+        for name, fn in (("kernel", fused), ("plain", plain)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(BN_HOST_CALLS):
+                fn(xs[i % copies])
+            host_us[name] = (time.perf_counter() - t0) / BN_HOST_CALLS * 1e6
+            torch.cuda.synchronize()
+        bound_ms = bn_cuda.bn_bound_ms(xs[0], torch.bfloat16)
+        entry = {"shape": [b, c, h, w], "relu": relu, "us": ms * 1e3,
+                 "library_us": library_ms * 1e3,
+                 "bound_us": bound_ms * 1e3, "bound_by": "bytes",
+                 "device_us": dev_us, "library_device_us": lib_dev_us,
+                 "share_of_bound": None if dev_us is None else bound_ms * 1e3 / dev_us,
+                 "floor_device_us": floor_us,
+                 "host_us": host_us["kernel"], "library_host_us": host_us["plain"],
+                 "library_kernels": plain_kernels, "bit_equal_share": share}
+        shapes.append(entry)
+        dev_text = (NOT_TRACED if dev_us is None else
+                    f"device {dev_us:.2f} us ({entry['share_of_bound']:.3f} of the bound), "
+                    f"library device {lib_dev_us:.2f} us, an empty kernel on the kernel's "
+                    f"grid {NOT_TRACED if floor_us is None else f'{floor_us:.2f} us'}")
+        print(f"frozen_bn {(b, c, h, w)} bf16 channels-last, scale and relu {relu}: within "
+              f"tolerance (worst "
+              f"{worst:.3f} against the plain chain, {off_exact:.3f} against float64, {share:.6f} "
+              f"bit-equal); 1 kernel per call, the library chain "
+              f"{plain_kernels}; per call {ms * 1e3:.2f} us (median of 20, wrapper included), "
+              f"library {library_ms * 1e3:.2f} us; bound {bound_ms * 1e3:.2f} us (bytes); "
+              f"{dev_text}; host {host_us['kernel']:.2f} us a call, library "
+              f"{host_us['plain']:.2f} us")
+        del xs
+    top = max((e for e in shapes if e["relu"]), key=lambda e: e["bound_us"])
+    return {"name": "frozen_bn", "route": "cuda", "source": "lsfa_tpu_torch/csrc/frozen_bn.cu",
+            "replaces": None, "ms": top["us"] / 1e3, "plain_ms": None,
+            "library_ms": top["library_us"] / 1e3, "bound_ms": top["bound_us"] / 1e3,
+            "bound_by": "bytes", "shapes": shapes}
+
+
+def bn_only():
+    """`python3 chip_smoke.py --bn`: phase 40 alone; prints its entry of
+    the kernels line as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs an NVIDIA card")
+    sys.path.insert(0, str(REPO))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    entry = bn_phase(torch.device("cuda", 0))
+    print(json.dumps({"kernels": [entry], "seconds": time.perf_counter() - T0}))
+
+
 def synth_gops(cfg, n_gops, seed, bucket=BUCKET, content=CONTENT, scale=600 / 576):
     """n_gops seeded stand-ins for PreparedVideo.gop tuples from the port's
     SyntheticPreparedVideo: I420 u8 key frames and 1/4 smalls padded with
@@ -882,6 +1092,7 @@ def rfcn_serving(dev, nms_cuda, greedy_alive):
     info = np.asarray([[CONTENT[0], CONTENT[1], 600 / 576]], np.float32)
     torch.cuda.synchronize()
     reset_nms_launches()
+    bn_start = bn_calls()
     outs, enqueue, wall, counts, syncs = [], [], [], [], 0
     for i, frame in enumerate(frames):
         t0 = time.perf_counter()
@@ -900,6 +1111,7 @@ def rfcn_serving(dev, nms_cuda, greedy_alive):
     launches = nms_launches()
     check(counts == [2 * (i + 1) for i in range(len(frames))],
           f"kernel launches after each frame {counts}, not 2 per frame")
+    bn_record("rfcn_serve", bn_start, fused=TRUNK_BNS * len(frames))
     check(syncs == 0, f"{syncs} host syncs flagged after the first frame")
     for dets, valid in outs:
         check(tuple(dets.shape) == (300, 6) and tuple(valid.shape) == (300,),
@@ -914,7 +1126,8 @@ def rfcn_serving(dev, nms_cuda, greedy_alive):
           f"RFCNDetector.detect; per-frame wall ms {[round(x * 1e3, 2) for x in wall]} (first "
           f"includes warm-up); after the first {steady * 1e3:.2f} ms/frame = {1 / steady:.1f} "
           f"frames/s, of it host enqueue {statistics.mean(enqueue[1:]) * 1e3:.2f} ms/frame; "
-          f"nms kernel launches {launches} (2 per frame); host syncs flagged after the "
+          f"nms kernel launches {launches} (2 per frame); FrozenBN calls "
+          f"{BN_BY_PATH['rfcn_serve']}; host syncs flagged after the "
           f"first frame {syncs}; valid detections on the last frame {int(outs[-1][1].sum())}")
     print(f"R-FCN serving: kernel mask equals plain on the last frame's RPN input "
           f"{tuple(boxes.shape)}: {int(got.sum())} alive of {int(valid.sum())} valid")
@@ -3540,6 +3753,9 @@ def main():
     max_err, shapes, checked = kernel_phase(dev, kernel_cases(np.random.default_rng(0)),
                                             nms_cuda, greedy_alive)
 
+    # 40. the frozen-BatchNorm kernel alone, before any profiled window
+    frozen_bn = bn_phase(dev)
+
     # 4. the main path at full width
     cfg = get_default_config()
     model = lsfa_from_config(cfg, device=dev)
@@ -3548,6 +3764,7 @@ def main():
     payloads = synth_gops(cfg, 3, 1)
     torch.cuda.synchronize()
     reset_nms_launches()
+    bn_start = bn_calls()
     gop_s, gop_enqueue = [], []
     syncs = 0
     outs = []
@@ -3569,6 +3786,7 @@ def main():
     launches = nms_launches()
     check(launches == 4 * len(payloads),
           f"the main path launched the NMS kernel {launches} times, not 4 per GOP")
+    bn_record("streaming", bn_start, fused=(TRUNK_BNS + SMALL_NET_BNS) * len(payloads))
     for kd, kv, cd, cv in outs:
         check(tuple(kd.shape) == (1, 1, 300, 6) and tuple(cd.shape) == (1, GOP - 1, 300, 6),
               f"detection shapes {tuple(kd.shape)}, {tuple(cd.shape)}")
@@ -3584,7 +3802,8 @@ def main():
           f"(first includes warm-up); after warm-up {statistics.mean(steady) * 1e3:.1f} "
           f"ms/GOP = {GOP / statistics.mean(steady):.1f} frames/s, of it host enqueue "
           f"{statistics.mean(gop_enqueue[1:]) * 1e3:.1f} ms/GOP; "
-          f"nms kernel launches {launches}; host syncs flagged after warm-up {syncs}; "
+          f"nms kernel launches {launches}; FrozenBN calls {BN_BY_PATH['streaming']}; "
+          f"host syncs flagged after warm-up {syncs}; "
           f"valid detections/frame {int(outs[-1][1].sum())}, "
           f"{int(outs[-1][3].sum()) // (GOP - 1)} (key, non-key mean)")
 
@@ -3615,12 +3834,12 @@ def main():
     print(f"small input: tiny LSFA float32, 2 GOPs, card vs CPU: carry max err "
           f"{carry_err:.2e}, valid masks equal, sorted scores max err {score_err:.2e}")
 
-    train_launches, train_err = train_phases(dev, nms_cuda, greedy_alive)
+    train_launches, train_err = bn_run("train", train_phases, dev, nms_cuda, greedy_alive)
     # 8-12: the single-frame R-FCN, the train-mode BatchNorms, per-frame
     # streaming and scoring
     serve_launches, serve_err, serve_outs = rfcn_serving(dev, nms_cuda, greedy_alive)
-    rfcn_launches, rfcn_err = rfcn_training(dev, nms_cuda, greedy_alive)
-    bn_launches, bn_err = bn_training(dev, nms_cuda, greedy_alive)
+    rfcn_launches, rfcn_err = bn_run("rfcn_train", rfcn_training, dev, nms_cuda, greedy_alive)
+    bn_launches, bn_err = bn_run("train_bn", bn_training, dev, nms_cuda, greedy_alive)
     per_frame_vs_gop(dev)
     from lsfa_tpu_torch.eval.tester import collect_detections
     scoring("the 12 R-FCN frames of phase 8",
@@ -3628,7 +3847,7 @@ def main():
     max_err = max(max_err, train_err, serve_err, rfcn_err, bn_err)
 
     # 13-18: the evaluation loops over synthetic streams, and the float32 pin
-    eval_dets, eval_launches = eval_phases(dev, model, cfg, nms_cuda)
+    eval_dets, eval_launches = bn_run("eval", eval_phases, dev, model, cfg, nms_cuda)
     scoring("eval_videos' 102 flagship frames", eval_dets)
     float32_pin(dev, det, payloads)
     check(torch.backends.cudnn.allow_tf32 is True,
@@ -3638,19 +3857,24 @@ def main():
     # launcher, and the warm-started trainer
     with tempfile.TemporaryDirectory() as scratch:
         scratch = Path(scratch)
-        rt_launches, rt_err, ckpts = reference_roundtrip(dev, nms_cuda, greedy_alive, scratch)
-        launcher_launches = launcher_phase(dev, nms_cuda, scratch, ckpts["LSFA"])
-        warm_launches, warm_err = warm_start_phase(dev, get_default_config(), nms_cuda,
-                                                   greedy_alive, scratch, ckpts["R-FCN"])
+        rt_launches, rt_err, ckpts = bn_run("roundtrip", reference_roundtrip, dev, nms_cuda,
+                                            greedy_alive, scratch)
+        launcher_launches = bn_run("launcher", launcher_phase, dev, nms_cuda, scratch,
+                                   ckpts["LSFA"])
+        warm_launches, warm_err = bn_run("warm_train", warm_start_phase, dev,
+                                         get_default_config(), nms_cuda, greedy_alive, scratch,
+                                         ckpts["R-FCN"])
         # 22: the train+test launcher over a DET+VID tree, under NCCL
-        tt_launches, tt_err = train_test_phase(dev, nms_cuda, greedy_alive, scratch)
+        tt_launches, tt_err = bn_run("train_test", train_test_phase, dev, nms_cuda,
+                                     greedy_alive, scratch)
     max_err = max(max_err, rt_err, warm_err, tt_err)
 
     # 23-26: the rest of the model family: the MobileNetV2 and Hobot trunks
     # at full width, the flagship's batched-GOP graph, every variant tiny
-    mobile_launches, mobile_err = mobilenet_phase(dev, nms_cuda, greedy_alive)
-    hobot_launches = hobot_phase(dev, nms_cuda)
-    gop_launches, gop_err, gop_classes = batch_gop_phase(dev, model, cfg, nms_cuda, greedy_alive)
+    mobile_launches, mobile_err = bn_run("mobilenet", mobilenet_phase, dev, nms_cuda, greedy_alive)
+    hobot_launches = bn_run("hobot", hobot_phase, dev, nms_cuda)
+    gop_launches, gop_err, gop_classes = bn_run("batch_gop", batch_gop_phase, dev, model, cfg,
+                                                nms_cuda, greedy_alive)
     variants_card_vs_cpu(dev)
     max_err = max(max_err, mobile_err, gop_err)
     check(torch.backends.cudnn.allow_tf32 is True,
@@ -3670,26 +3894,27 @@ def main():
     # 28-33: the entry points of the last slice and the paths that raised
     with tempfile.TemporaryDirectory() as scratch:
         scratch = Path(scratch)
-        demo_launches = demo_phase(dev, model, nms_cuda, scratch)
-        overfit_launches = overfit_phase(nms_cuda)
+        demo_launches = bn_run("demo", demo_phase, dev, model, nms_cuda, scratch)
+        overfit_launches = bn_run("overfit", overfit_phase, nms_cuda)
         pretrain_flow_phase(dev, nms_cuda, scratch)
-    bn_ar_launches = bn_allreduce_phase(dev, nms_cuda)
-    bf16_launches = bf16_params_phase(dev, nms_cuda)
-    jpeg_launches = jpeg_eval_phase(dev, model, cfg, nms_cuda)
+    bn_ar_launches = bn_run("bn_allreduce", bn_allreduce_phase, dev, nms_cuda)
+    bf16_launches = bn_run("bf16_params", bf16_params_phase, dev, nms_cuda)
+    jpeg_launches = bn_run("jpeg_eval", jpeg_eval_phase, dev, model, cfg, nms_cuda)
     check(torch.backends.cudnn.allow_tf32 is True,
           "torch.backends.cudnn.allow_tf32 was left changed by the package")
     print(f"phases 1-33: {time.perf_counter() - T0:.1f} s since the script started")
 
     # 34-35: the synthetic ablation ladder's two card rungs, the entry hooks
     with tempfile.TemporaryDirectory() as scratch:
-        ladder_launches, ladder_err, _ = ladder_phase(dev, nms_cuda, greedy_alive, Path(scratch),
-                                                      **LADDER_SMOKE)
-    entry_launches = entry_phase(dev, nms_cuda)
+        ladder_launches, ladder_err, _ = bn_run("ladder", ladder_phase, dev, nms_cuda,
+                                                greedy_alive, Path(scratch), **LADDER_SMOKE)
+    entry_launches = bn_run("entry", entry_phase, dev, nms_cuda)
     max_err = max(max_err, ladder_err)
     print(f"phases 1-35: {time.perf_counter() - T0:.1f} s since the script started")
 
     # 36: the measurement tools (their --trace parts run after phase 27)
-    tools_launches, tools_err, n6000, input6000 = tools_phase(dev, nms_cuda, greedy_alive)
+    tools_launches, tools_err, n6000, input6000 = bn_run("tools", tools_phase, dev, nms_cuda,
+                                                         greedy_alive)
     max_err = max(max_err, tools_err)
     print(f"phases 1-36: {time.perf_counter() - T0:.1f} s since the script started")
 
@@ -3700,7 +3925,8 @@ def main():
     print(f"phases 1-37: {time.perf_counter() - T0:.1f} s since the script started")
 
     # 38: tensor-parallel serving of the head stack
-    tensor_launches, tensor_err = tp_phase(dev, model, cfg, nms_cuda, greedy_alive)
+    tensor_launches, tensor_err = bn_run("tensor_parallel", tp_phase, dev, model, cfg, nms_cuda,
+                                         greedy_alive)
     max_err = max(max_err, tensor_err)
     print(f"phases 1-38: {time.perf_counter() - T0:.1f} s since the script started")
 
@@ -3767,7 +3993,9 @@ def main():
                              **bf16_launches, "jpeg_eval": jpeg_launches, **ladder_launches,
                              "entry": entry_launches, **tools_launches, **lanes_launches,
                              **tensor_launches, **ranks_launches},
-        "shapes": shapes}]}))
+        "shapes": shapes},
+        {**frozen_bn, "launches": sum(v["fused"] for v in BN_BY_PATH.values()),
+         "launches_by_path": BN_BY_PATH}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -4015,6 +4243,7 @@ def lanes_phase(dev, model, cfg, nms_cuda, greedy_alive, eval_dets):
         before = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         reset_nms_launches()
+        bn_start = bn_calls()
         t0 = time.perf_counter()
         prev = None
         for _ in range(LANE_WINDOWS):
@@ -4026,6 +4255,7 @@ def lanes_phase(dev, model, cfg, nms_cuda, greedy_alive, eval_dets):
         wall = time.perf_counter() - t0
         n = nms_launches()
         check(n == 8 * LANE_WINDOWS, f"lanes B={b}: {n} kernel launches, not 4 per GOP")
+        bn_record(f"lanes_b{b}", bn_start, fused=2 * LANE_WINDOWS * (TRUNK_BNS + SMALL_NET_BNS))
         m = cfg.TEST.max_per_image
         check(tuple(kd.shape) == (2, b, m, 6) and tuple(cd.shape) == (2, GOP - 1, b, m, 6),
               f"lanes B={b}: detection shapes {tuple(kd.shape)}, {tuple(cd.shape)}")
@@ -4042,7 +4272,8 @@ def lanes_phase(dev, model, cfg, nms_cuda, greedy_alive, eval_dets):
         print(f"lanes: B={b} on {name}: {frames} frames in {LANE_WINDOWS} windows of 2 GOPs: "
               f"{runs[b]['fps']:.1f} frames/s aggregate, {runs[b]['window_ms']:.1f} ms per "
               f"window ({runs[b]['window_ms'] / (2 * GOP * b):.2f} ms per frame); nms kernel "
-              f"launches {n} (4 per GOP); peak memory {runs[b]['peak_gib']:.2f} GiB, "
+              f"launches {n} (4 per GOP); FrozenBN calls {BN_BY_PATH[f'lanes_b{b}']}; peak "
+              f"memory {runs[b]['peak_gib']:.2f} GiB, "
               f"{runs[b]['above_gib']:.2f} GiB above the allocation before the windows")
         del det, pinned
 
@@ -4614,6 +4845,8 @@ if __name__ == "__main__":
             lanes_only()
         elif sys.argv[1:] == ["--tp"]:
             tp_only()
+        elif sys.argv[1:] == ["--bn"]:
+            bn_only()
         elif len(sys.argv) > 1:
             long_ladder(sys.argv[1:])
         else:

@@ -32,7 +32,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lsfa_tpu_torch.ops.bn_cuda import frozen_bn_cuda, frozen_bn_plain
 from lsfa_tpu_torch.parallel import mesh
+from lsfa_tpu_torch.utils.profiler import count
 
 BN_EPS = 2e-5
 BN_MOMENTUM = 0.9
@@ -128,7 +130,16 @@ class Deconv2x(nn.ConvTranspose2d):
 
 
 class FrozenBN(nn.Module):
-    """BatchNorm on running statistics; float32 math, output in `dtype`."""
+    """BatchNorm on running statistics; float32 math, output in `dtype`,
+    then ReLU if the caller asks (``forward(x, relu=True)``).
+
+    A CUDA tensor with autograd off (the eval entries run under
+    ``torch.no_grad``) takes the fused kernel (``ops/bn_cuda.py``: one
+    launch, one rounding to `dtype`). Every other call runs the plain chain
+    of upcast, ``F.batch_norm``, cast and ``torch.relu``: the CPU, and a
+    training step, frozen BatchNorms included, whose float32 results on
+    the card then round as the CPU's do. Each call counts ``bn.fused`` or
+    ``bn.plain``."""
 
     def __init__(self, features: int, use_scale: bool = True,
                  dtype=torch.float32, device=None):
@@ -139,11 +150,14 @@ class FrozenBN(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features, device=device))
         self.register_buffer("running_var", torch.ones(features, device=device))
 
-    def forward(self, x):
-        w = None if self.weight is None else self.weight.float()
-        y = F.batch_norm(x.float(), self.running_mean, self.running_var,
-                         w, self.bias.float(), training=False, eps=BN_EPS)
-        return y.to(self.dtype)
+    def forward(self, x, relu: bool = False):
+        if x.is_cuda and not torch.is_grad_enabled():
+            count("bn.fused")
+            return frozen_bn_cuda(x, self.running_mean, self.running_var, self.weight,
+                                  self.bias, BN_EPS, relu, self.dtype)
+        count("bn.plain")
+        return frozen_bn_plain(x, self.running_mean, self.running_var, self.weight,
+                               self.bias, BN_EPS, relu, self.dtype)
 
 
 class BatchNorm(FrozenBN):
@@ -163,9 +177,9 @@ class BatchNorm(FrozenBN):
     per step, in the same order, forward and backward: no branch of the
     model skips one on its data."""
 
-    def forward(self, x):
+    def forward(self, x, relu: bool = False):
         if not self.training:
-            return super().forward(x)
+            return super().forward(x, relu)
         xf = x.float()
         c = xf.shape[1]
         count = torch.full((1,), xf.numel() // c, dtype=torch.float32, device=xf.device)
@@ -178,7 +192,8 @@ class BatchNorm(FrozenBN):
             self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
         mul = torch.rsqrt(var + BN_EPS) * self.weight.float()
         y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias.float()[:, None, None]
-        return y.to(self.dtype)
+        y = y.to(self.dtype)
+        return torch.relu(y) if relu else y
 
 
 def avg_pool(x, window: int):

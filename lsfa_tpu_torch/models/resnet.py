@@ -109,14 +109,14 @@ class PreactUnit(nn.Module):
         self.sc = None if dim_match else Conv(cin, features, 1, stride, **kw)
 
     def forward(self, x):
-        a1 = torch.relu(self.bn1(x))
+        a1 = self.bn1(x, relu=True)
         if self.bottleneck:
             h = self.conv1(a1)
-            h = self.conv2(torch.relu(self.bn2(h)))
-            h = self.conv3(torch.relu(self.bn3(h)))
+            h = self.conv2(self.bn2(h, relu=True))
+            h = self.conv3(self.bn3(h, relu=True))
         else:
             h = self.conv1(a1)
-            h = self.conv2(torch.relu(self.bn2(h)))
+            h = self.conv2(self.bn2(h, relu=True))
         sc = x if self.sc is None else self.sc(a1)
         return h + sc
 
@@ -171,7 +171,7 @@ class ResNetBackbone(nn.Module):
 
     def forward(self, x):
         x = self.bn_data(x.to(self.dtype))
-        x = torch.relu(self.bn0(self.conv0(x)))
+        x = self.bn0(self.conv0(x), relu=True)
         x = max_pool_3x3_s2(x)
         parts = []
         for names in self.stages:
@@ -179,5 +179,5 @@ class ResNetBackbone(nn.Module):
                 x = getattr(self, name)(x)
             parts.append(x)
         if self.num_stages == 4:
-            parts.append(torch.relu(self.bn1(x)))
+            parts.append(self.bn1(x, relu=True))
         return parts

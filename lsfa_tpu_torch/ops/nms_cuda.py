@@ -2,10 +2,8 @@
 
 The kernel replaces ``lsfa_tpu/ops/pallas_nms.py::greedy_alive_pallas``;
 its plain PyTorch version is ``ops/nms.py::greedy_alive``. The source is
-compiled by ``nvcc`` for sm_90a into a plain-C shared library under
-``lsfa_tpu_torch/_build/`` on first use, keyed by a hash of the source and
-flags, and loaded with ``ctypes``. A failed build raises; nothing falls
-back to the plain version.
+compiled by ``nvcc`` for sm_90a on first use (``ops/cuda_build.py``); a
+failed build raises, and nothing falls back to the plain version.
 
 For N <= 2048 the wrapper makes one launch (a thread-block cluster per
 item) and allocates only the outputs; for larger N it adds the
@@ -18,20 +16,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import torch
 
+from lsfa_tpu_torch.ops.cuda_build import CSRC, build_library
 from lsfa_tpu_torch.utils.profiler import count
 
-PKG = Path(__file__).resolve().parents[1]
-SOURCE = PKG / "csrc" / "nms_sweep.cu"
-BUILD_DIR = PKG / "_build"
+SOURCE = CSRC / "nms_sweep.cu"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 FUSED_MAX_N = 2048      # one cluster launch, no scratch, up to this N
@@ -89,33 +81,12 @@ def nms_bound_ms(b: int, n: int):
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    path = Path(home) / "bin" / "nvcc"
-    if path.exists():
-        return str(path)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return found
-
-
 def build() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
     global _lib
     if _lib is not None:
         return _lib
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib_path = BUILD_DIR / f"libnms_sweep_{digest[:16]}.so"
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(exist_ok=True)
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{proc.stderr}")
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+    lib = build_library(SOURCE, NVCC_FLAGS, "nms_sweep")
     fn = lib.nms_sweep_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                    ctypes.c_float, ctypes.c_float, ctypes.c_double, ctypes.c_int,

@@ -2,8 +2,9 @@
 `tracing`) on the tiny configs, on the CPU: the span tree of
 `StreamingDetector.process_gops` and `RFCNDetector.detect` with parents
 and one request id per call, the counters against the counts the shapes
-give, nothing recorded and bit-equal outputs with tracing off, and every
-span a ``torch.profiler`` range nested as its parents say.
+give (``bn.plain`` for each BatchNorm call on the CPU), nothing recorded
+and bit-equal outputs with tracing off, and every span a
+``torch.profiler`` range nested as its parents say.
 
 JAX-free, so that its card tests run on a machine with a card and no JAX:
 
@@ -23,6 +24,7 @@ import torch
 from lsfa_tpu_torch.config import load_config
 from lsfa_tpu_torch.eval.rfcn_tester import RFCNDetector, rfcn_from_config
 from lsfa_tpu_torch.eval.tester import StreamingDetector
+from lsfa_tpu_torch.models.layers import FrozenBN
 from lsfa_tpu_torch.models.lsfa import init_params, lsfa_from_config
 from lsfa_tpu_torch.utils import profiler
 from lsfa_tpu_torch.utils.profiler import PhaseTimer, count, span, trace, tracing
@@ -151,15 +153,24 @@ def nms_shapes(cfg, rows):
     return [rpn, classes]
 
 
+def frozen_bns(module):
+    """The FrozenBNs of `module`: 19 in the tiny configs' ResNet-18 trunk
+    (16 in its units, bn_data, bn0, bn1), 6 in its one-stage small net."""
+    return sum(isinstance(m, FrozenBN) for m in module.modules())
+
+
 def test_counters_equal_the_known_counts(lsfa, rfcn):
     cfg, model = lsfa
     det = StreamingDetector(model, cfg, (H, W), batch=B)
     with tracing() as rec:
         det.process_gops(*gop_inputs(1), INFO2, first=True)
     shapes = G * (nms_shapes(cfg, B) + nms_shapes(cfg, N * B))
+    # one call of each BatchNorm of the trunk (key frames) and of the small
+    # net (non-key frames) a GOP; on the CPU each takes the plain chain
+    bns = frozen_bns(model.backbone) + frozen_bns(model.small_net_backbone)
     assert rec.counters == {
         "stream.restarts": B, "model.frames.key": G * B, "model.frames.cur": G * N * B,
-        "detect.frames": G * (B + N * B), "nms.calls": 4 * G,
+        "detect.frames": G * (B + N * B), "nms.calls": 4 * G, "bn.plain": G * bns,
         "nms.boxes": sum(b * n for b, n in shapes),
         "nms.pairs": sum(b * n * (n - 1) // 2 for b, n in shapes)}
 
@@ -172,6 +183,7 @@ def test_counters_equal_the_known_counts(lsfa, rfcn):
     shapes = frames * nms_shapes(rcfg, 1)
     assert rec.counters == {
         "model.frames.rfcn": frames, "detect.frames": frames, "nms.calls": 2 * frames,
+        "bn.plain": frames * frozen_bns(rmodel.backbone),
         "nms.boxes": sum(b * n for b, n in shapes),
         "nms.pairs": sum(b * n * (n - 1) // 2 for b, n in shapes)}
     # the kernel's launches count on a card only
