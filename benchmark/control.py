@@ -28,8 +28,7 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 import torch  # noqa: E402
 
-from benchmark import judge  # noqa: E402
-from benchmark.drivers import DRIVERS  # noqa: E402
+from benchmark import entries, judge, kinds  # noqa: E402
 from benchmark.faults import FAULTS  # noqa: E402
 from benchmark.harness import run_cell, seeds  # noqa: E402
 from benchmark.reference import model as ref  # noqa: E402
@@ -41,15 +40,15 @@ def control_readings(cfg: dict, mix: dict, seed: int, device) -> dict:
     """The control's numbers: the reference in float8 judged by the float32
     reference, on the sample a run of `seed` would draw."""
     s = seeds(seed)
-    drv = DRIVERS[mix["entry"]](cfg, mix, s["inputs"], device)
+    drv = entries.driver(mix["entry"])(cfg, mix, s["inputs"], device)
     drv.kept = dict.fromkeys(range(drv.cycle))
     sample = drv.sample(np.random.default_rng(s["sample"]))
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     out = []
     for prec in ("float8", "float32"):
-        net = ref.build(cfg["model"], cfg, ref.Precision(prec), device)
-        net.load_state_dict(make_state_dict(cfg["model"], cfg, s["weights"], device))
+        net = kinds.find(cfg["model"]).reference(cfg, ref.Precision(prec), device)
+        net.load_state_dict(make_state_dict(cfg, s["weights"], device))
         out.append(drv.reference_frames(net.eval(), sample))
         del net
         gc.collect()

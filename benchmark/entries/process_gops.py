@@ -1,35 +1,14 @@
-"""The entries the window drives, one class per kind of traffic mix.
-
-A driver owns the program's entry for its mix (``StreamingDetector.
-process_gops`` over lockstep lanes, or ``RFCNDetector.detect`` per frame),
-stages one window of inputs from the pinned pool, calls the entry, keeps
-the host copy of every window's detections by its place in the pool, and
-works out the same windows again with the plain reference for the check.
-What it imports of the program is the system under test; the reference
-side imports nothing of it.
-"""
+"""Lockstep lanes: `lanes` streams as the lanes of one
+``StreamingDetector`` through ``process_gops``, each window `gops_per_window`
+GOPs (``benchmark/gen.py::lane_pool``)."""
 
 from __future__ import annotations
 
 import torch
 
 from benchmark import gen
+from benchmark.entries import anchor_grid, valid_rows
 from benchmark.reference import detect as ref_detect
-
-
-def _anchors(cfg, device):
-    bh, bw = cfg["tpu"]["default_bucket"]
-    s = cfg["network"]["RPN_FEAT_STRIDE"]
-    n = cfg["network"]
-    return torch.from_numpy(ref_detect.anchor_grid(bh // s, bw // s, s, tuple(n["ANCHOR_RATIOS"]),
-                                                   tuple(n["ANCHOR_SCALES"]))).to(device)
-
-
-def _frames(dets, valid):
-    """Host (..., M, 6) detections -> list of (M', 6) valid rows."""
-    d = dets.reshape(-1, dets.shape[-2], 6)
-    v = valid.reshape(-1, valid.shape[-1])
-    return [d[i][v[i]] for i in range(d.shape[0])]
 
 
 class LaneDriver:
@@ -88,7 +67,7 @@ class LaneDriver:
         for lane, g in sample:
             kd, kv, cd, cv = self.kept[g // self.gpw]
             gi = g % self.gpw
-            out.append(_frames(kd[gi, lane], kv[gi, lane]) + _frames(cd[gi, :, lane],
+            out.append(valid_rows(kd[gi, lane], kv[gi, lane]) + valid_rows(cd[gi, :, lane],
                                                                      cv[gi, :, lane]))
         return out
 
@@ -99,7 +78,7 @@ class LaneDriver:
         carry, then the GOP's key and non-key frames, through detection
         (`reference.detect.frames`)."""
         dev, cfg, p = self.device, self.cfg, self.pool
-        anchors = _anchors(cfg, dev)
+        anchors = anchor_grid(cfg, dev)
         bh, bw = cfg["tpu"]["default_bucket"]
         s = cfg["network"]["RPN_FEAT_STRIDE"]
         c = cfg["network"]["DFF_FEAT_DIM"]
@@ -121,49 +100,4 @@ class LaneDriver:
         return out
 
 
-class FrameDriver:
-    """One stream of frames through ``RFCNDetector.detect``, one frame a
-    call, cycling through a pool of `pool_frames` frames."""
-
-    def __init__(self, cfg: dict, mix: dict, seed: int, device):
-        self.cfg, self.mix, self.device = cfg, mix, torch.device(device)
-        self.pool = gen.frame_pool(cfg, mix, seed, self.device)
-        self.cycle = mix["pool_frames"]
-        self.frames_per_window = 1
-        self.requests_per_window = 1
-        self.im_info = self.pool["im_info"].to(self.device)
-        self.kept = {}
-
-    def build(self, model, program_cfg):
-        from lsfa_tpu_torch.eval.rfcn_tester import RFCNDetector
-
-        self.det = RFCNDetector(model, program_cfg, tuple(self.cfg["tpu"]["default_bucket"]))
-
-    def stage(self, w: int):
-        return self.pool["frames"][w % self.cycle].to(self.device, non_blocking=True)
-
-    def call(self, staged, w: int):
-        return self.det.detect(staged, self.im_info)
-
-    def keep(self, w: int, host):
-        self.kept[w % self.cycle] = host
-
-    def release(self):
-        self.det = None
-
-    def sample(self, rng):
-        done = sorted(self.kept)
-        k = min(self.mix["check_frames"], len(done))
-        return sorted(int(done[i]) for i in rng.choice(len(done), size=k, replace=False))
-
-    def program_frames(self, sample):
-        return [_frames(*self.kept[i]) for i in sample]
-
-    @torch.no_grad()
-    def reference_frames(self, net, sample):
-        anchors = _anchors(self.cfg, self.device)
-        return [ref_detect.frames(net(self.pool["frames"][i].to(self.device)), anchors,
-                                  self.im_info, self.cfg) for i in sample]
-
-
-DRIVERS = {"process_gops": LaneDriver, "detect": FrameDriver}
+Driver = LaneDriver

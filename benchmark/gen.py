@@ -4,14 +4,16 @@ One general generator reads a traffic mix's data file
 (``benchmark/traffic/<mix>.json``) and the configuration's shapes, and
 draws the whole pool of inputs on the device with one ``torch.Generator``,
 then moves it to pinned host memory, from which the window stages it. The
-same seed gives the same pool.
+same seed gives the same pool. The mix's entry (``benchmark/entries/``)
+calls the pool it drives; a new entry builds its own from the helpers
+here.
 
 Frames are smooth random scenes (bilinear upsampling of coarse noise plus
 fine noise) in the content area of the bucket, padded as the data plane
 pads: zero BGR, and Y=16, U=V=128 in I420, which converts to zero. Motion
 vectors are smooth fields in feature cells, residuals normal.
 
-Entries of a mix:
+The pools, by the entry that drives them:
 - ``"entry": "process_gops"``: `lanes` lockstep streams, each a video of
   `video_gops` GOPs of KEY_FRAME_INTERVAL frames, served `gops_per_window`
   GOPs at a time; key frames planar I420 (``tpu.frame_payload``), non-key

@@ -1,15 +1,17 @@
-"""One run of one cell: set-up, the measured window, the traced sub-window,
+"""One run of one cell: set-up, the measured window, the traced windows,
 the check against the plain reference, and the result line.
 
 Everything that belongs to one configuration, traffic mix, cell or metric
-is data or a reader of its own, found by name:
+is data or a file of its own, found by name:
 
 - ``benchmark/configs/<config>.json``: the configuration as run (the
   program's config overlay, with ``model``, ``source``, ``reduced``,
   ``assumed``, the weight recipe and ``flops_per_frame``);
-- ``benchmark/traffic/<traffic>.json``: the mix's parameters, read by
-  ``benchmark/gen.py`` and driven by the ``benchmark/drivers.py`` class
-  its ``entry`` names;
+- ``benchmark/kinds/<model>.py``: the configuration's model kind (the
+  program's network, the plain reference network, the FLOPs a frame);
+- ``benchmark/traffic/<traffic>.json``: the mix's parameters, driven by
+  the ``Driver`` of ``benchmark/entries/<entry>.py``, which makes its pool
+  of inputs with ``benchmark/gen.py``;
 - ``benchmark/checks/<workload>.json``: the numbers compared and their
   limits;
 - ``benchmark/metrics/<metric>.py``: ``read(run) -> float | None``; a
@@ -20,6 +22,13 @@ The window keeps one call in flight: call k+1 is enqueued before call k's
 detections are read back, and each call's detections are copied to pinned
 host buffers behind its kernels, so the read-back waits for that call
 alone.
+
+A traced run (``trace``) runs three windows of ``LEAD_IN + trace_calls``
+calls after the measured one: the profiled window (``run["trace"]``), then
+``benchmark/spans.py::span_windows``: the span window under the program's
+``tracing()`` (``run["spans"]``: each span's host time, the counters) and
+the profiled window under ``tracing()`` (``run["span_trace"]``: the device
+time of the kernels launched inside each span).
 """
 
 from __future__ import annotations
@@ -35,14 +44,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from benchmark import judge, trace as trace_mod
-from benchmark.drivers import DRIVERS
+from benchmark import entries, judge, kinds, spans, trace as trace_mod
 from benchmark.reference import model as ref
 from benchmark.weights import make_state_dict
 
 ROOT = Path(__file__).resolve().parents[1]
-PROGRAM_KEYS = ("symbol", "SCALES", "CLASS_AGNOSTIC", "network", "dataset", "TRAIN", "TEST",
-                "tpu")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "lsfa_tpu")
 
 
@@ -76,24 +82,17 @@ def seeds(seed: int) -> dict:
     return dict(zip(("weights", "inputs", "sample"), vals))
 
 
-def program_model(kind: str, cfg: dict, device):
-    """The program's network for a configuration, on `device`, with its
-    config tree."""
-    from lsfa_tpu_torch.config import load_config
-
-    pcfg = load_config(None, overrides={k: cfg[k] for k in PROGRAM_KEYS if k in cfg})
-    if kind == "lsfa":
-        from lsfa_tpu_torch.models.lsfa import lsfa_from_config
-
-        return lsfa_from_config(pcfg, device=device), pcfg
-    from lsfa_tpu_torch.eval.rfcn_tester import rfcn_from_config
-
-    return rfcn_from_config(pcfg, device=device), pcfg
-
-
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def profiler_activities(device) -> list:
+    """What ``torch.profiler`` records on `device`: the host, and the card's
+    kernels where there is one."""
+    from torch.profiler import ProfilerActivity
+
+    return [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
 
 
 class _Readback:
@@ -161,28 +160,35 @@ def window_loop(drv, readback, w0: int, until: float | None = None, count: int =
             return rec
 
 
-def run_cell(cfg: dict, mix: dict, checks: dict, metric_names: list, seed: int, seconds: float,
-             trace: bool, device, t0: float) -> dict:
-    """One run; returns the result line as a dict (without printing)."""
-    device = torch.device(device)
-    s = seeds(seed)
-    kind = cfg["model"]
+def set_up(cfg: dict, mix: dict, s: dict, device, t0: float):
+    """The program's network with the seeded weights, the mix's driver built
+    on it and its warm-up calls; prints the set-up's phases (from `t0`).
+    Returns (model, driver, read-back buffers, next window, setup seconds)."""
+    kind, driver = kinds.find(cfg["model"]), entries.driver(mix["entry"])
     phases = [("imports", time.perf_counter())]
-    model, pcfg = program_model(kind, cfg, device)
+    model, pcfg = kind.program(cfg, device)
     phases.append(("model", time.perf_counter()))
-    model.load_state_dict(make_state_dict(kind, cfg, s["weights"], device))
+    model.load_state_dict(make_state_dict(cfg, s["weights"], device))
     phases.append(("weights", time.perf_counter()))
-    drv = DRIVERS[mix["entry"]](cfg, mix, s["inputs"], device)
+    drv = driver(cfg, mix, s["inputs"], device)
     drv.build(model, pcfg)
     phases.append(("inputs", time.perf_counter()))
     readback = _Readback(device)
     w = window_loop(drv, readback, 0, count=mix["warmup_calls"], keep=False)["w_next"]
     _sync(device)
     phases.append(("warm-up", time.perf_counter()))
-    setup_s = phases[-1][1] - t0
     starts = [t0] + [t for _, t in phases[:-1]]
     print("setup " + " ".join(f"{n} {t - a:.3f}" for (n, t), a in zip(phases, starts)) + " s",
           file=sys.stderr)
+    return model, drv, readback, w, phases[-1][1] - t0
+
+
+def run_cell(cfg: dict, mix: dict, checks: dict, metric_names: list, seed: int, seconds: float,
+             trace: bool, device, t0: float) -> dict:
+    """One run; returns the result line as a dict (without printing)."""
+    device = torch.device(device)
+    s = seeds(seed)
+    model, drv, readback, w, setup_s = set_up(cfg, mix, s, device, t0)
 
     rec = window_loop(drv, readback, w, until=time.perf_counter() + seconds)
     run = {"cfg": cfg, "mix": mix, "setup_s": setup_s, "request": mix["request"],
@@ -190,13 +196,13 @@ def run_cell(cfg: dict, mix: dict, checks: dict, metric_names: list, seed: int, 
            "window_s": rec["t_end"] - rec["t_start"], "enqueue_s": rec["enqueue_s"],
            "latencies_s": rec["latencies"]}
     if trace:
-        from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import profile
 
         _sync(device)
-        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
         calls = trace_mod.LEAD_IN + mix["trace_calls"]
-        with profile(activities=acts) as prof:
-            window_loop(drv, readback, rec["w_next"], count=calls, keep=False, mark=True)
+        with profile(activities=profiler_activities(device)) as prof:
+            w = window_loop(drv, readback, rec["w_next"], count=calls, keep=False,
+                            mark=True)["w_next"]
             _sync(device)
         run["trace"] = trace_mod.reduce(prof.events())
         run["trace_frames"] = calls * drv.frames_per_window
@@ -205,6 +211,7 @@ def run_cell(cfg: dict, mix: dict, checks: dict, metric_names: list, seed: int, 
         print(f"trace idle {100 * (1 - t['busy_s'] / t['window_s'])} % of {t['window_s']} s "
               f"after the lead-in; {100 * (1 - t['whole_busy_s'] / t['whole_window_s'])} % of "
               f"{t['whole_window_s']} s with it", file=sys.stderr)
+        run.update(spans.span_windows(drv, readback, w, calls, device)[0])
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
 
     rng = np.random.default_rng(s["sample"])
@@ -215,7 +222,7 @@ def run_cell(cfg: dict, mix: dict, checks: dict, metric_names: list, seed: int, 
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    got = reference_readings(kind, cfg, s["weights"], drv, sample, prog, device)
+    got = reference_readings(cfg, s["weights"], drv, sample, prog, device)
 
     metrics = {}
     for name, unit in metric_names:
@@ -239,13 +246,13 @@ def run_cell(cfg: dict, mix: dict, checks: dict, metric_names: list, seed: int, 
     return result
 
 
-def reference_readings(kind, cfg, weights_seed, drv, sample, prog, device) -> dict:
+def reference_readings(cfg, weights_seed, drv, sample, prog, device) -> dict:
     """The numbers compared: the program's detections of the sample judged
     by the plain float32 reference (TF32 off)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    net = ref.build(kind, cfg, ref.Precision("float32"), device)
-    net.load_state_dict(make_state_dict(kind, cfg, weights_seed, device))
+    net = kinds.find(cfg["model"]).reference(cfg, ref.Precision("float32"), device)
+    net.load_state_dict(make_state_dict(cfg, weights_seed, device))
     net.eval()
     refs = drv.reference_frames(net, sample)
     del net

@@ -1,4 +1,6 @@
-"""Plain float32 reference of the two benchmarked networks.
+"""Plain float32 reference of the benchmarked networks, and the blocks a
+new one is built from (``Conv``, ``Deconv2x``, ``FrozenBN``,
+``DeformConv2d``, ``ResNet``, ``FlowNetS``, ``flow_warp``, ``Precision``).
 
 A frozen, trimmed copy of the equations of LSFA (ResNet-101 with DCN,
 FlowNet-S, Nq-net, R-net, small net at stride 4, add fusion) and of the
@@ -420,19 +422,14 @@ class LSFA(RFCNBase):
         return self.detection_maps(self.small_fuse(fused, small_feat))
 
 
-def build(kind: str, cfg: dict, prec: Precision | None = None, device=None) -> nn.Module:
-    """The reference network of a benchmark configuration's `network`
-    section: kind "lsfa" or "rfcn"."""
+def net_args(cfg: dict, paths: dict) -> dict:
+    """A reference network's constructor arguments from a configuration,
+    once it is known to take only paths the reference implements: each
+    switch of `paths` (where the `network` section sets it) at its value
+    there, a ResNet of 50 layers or more, pixel means 0 and scale 1."""
     n = cfg["network"]
-    lsfa_paths = {"nettype": "resnet", "rnet_num_conv": 0, "fnet_type": "None", "fuse_type": "add",
-                  "res_diff_bn": False, "small_net_stride": 4, "small_net_fuse_type": "add",
-                  "small_net_bn_before_fuse": False, "small_net_scale_before_fuse": False,
-                  "add_Fgfa_net": False}
-    need = dict(lsfa_paths, add_small_net=True, add_Nq_net=True, add_rnet=True,
-                add_lt_aggregation=True) if kind == "lsfa" else {"nettype": "resnet"}
-    other = {k: n[k] for k in need if k in n and n[k] != need[k]}
+    other = {k: n[k] for k in paths if k in n and n[k] != paths[k]}
     if other or n["num_layer"] < 50 or n["PIXEL_MEANS"] != [0.0, 0.0, 0.0] or n["PIXEL_SCALE"] != 1:
         raise ValueError(f"the reference does not implement {other or n}")
-    kw = dict(num_classes=cfg["dataset"]["NUM_CLASSES"], feat_dim=n.get("DFF_FEAT_DIM", 1024),
-              num_layer=n["num_layer"], add_dcn=n["add_dcn"], prec=prec, device=device)
-    return {"lsfa": LSFA, "rfcn": RFCN}[kind](**kw)
+    return dict(num_classes=cfg["dataset"]["NUM_CLASSES"], feat_dim=n.get("DFF_FEAT_DIM", 1024),
+                num_layer=n["num_layer"], add_dcn=n["add_dcn"])

@@ -21,6 +21,13 @@ against), then two windows of ``LEAD_IN + trace_calls`` calls each:
   idle time after the lead-in (``device_idle_pct``'s) to the innermost
   span open on the host meanwhile, ``harness`` where none was.
 
+The two windows are `span_windows`, which a traced run of
+``benchmark/run.py`` (``--trace 1``) runs too, after its own profiled
+window, so that a metric file (``benchmark/metrics/``) reads any span or
+counter by name from ``run["spans"]`` and ``run["span_trace"]``; the four
+span metrics below are such readers. This tool also reads the tracing's
+on-cost in alternating traced and untraced calls, which a run leaves out.
+
 It prints the per-span table to standard error and one JSON line to
 standard output (also under ``chiprun_out/spans/``). The check against
 the reference is not run: ``benchmark/run.py`` judges `correct`. A program
@@ -343,48 +350,54 @@ class _Alternating:
         return out
 
 
-def run_spans(cfg, mix, seed, seconds, device) -> dict:
-    """One run of a cell through the three windows; returns its record."""
+def span_windows(drv, readback, w: int, calls: int, device) -> tuple:
+    """The span window and the profiled window, `calls` calls each from
+    window `w`, both under the program's ``tracing()``, the second also
+    under ``torch.profiler``. Returns the run's ``spans`` (host table,
+    counters, the window's enqueue seconds and frames) and ``span_trace``
+    (`span_trace`) records, the profiled window's events and the names of
+    the spans recorded in it."""
+    from torch.profiler import profile
+
     from benchmark import harness
-    from benchmark.drivers import DRIVERS
-    from benchmark.weights import make_state_dict
     from lsfa_tpu_torch.utils.profiler import tracing
 
-    device = torch.device(device)
-    s = harness.seeds(seed)
-    model, pcfg = harness.program_model(cfg["model"], cfg, device)
-    model.load_state_dict(make_state_dict(cfg["model"], cfg, s["weights"], device))
-    drv = DRIVERS[mix["entry"]](cfg, mix, s["inputs"], device)
-    drv.build(model, pcfg)
-    readback = harness._Readback(device)
-    w = harness.window_loop(drv, readback, 0, count=mix["warmup_calls"], keep=False)["w_next"]
-    harness._sync(device)
-    rec = harness.window_loop(drv, readback, w, until=time.perf_counter() + seconds, keep=False)
-    frames = rec["calls"] * drv.frames_per_window
-    calls = LEAD_IN + mix["trace_calls"]
     harness._sync(device)
     with tracing() as r:
-        spanned = harness.window_loop(drv, readback, rec["w_next"], count=calls, keep=False)
+        spanned = harness.window_loop(drv, readback, w, count=calls, keep=False)
         harness._sync(device)
-    span_frames = calls * drv.frames_per_window
-    run = {"cfg": cfg, "mix": mix, "frames": frames, "window_s": rec["t_end"] - rec["t_start"],
-           "enqueue_s": rec["enqueue_s"], "trace_frames": span_frames,
-           "spans": {"host": host_table(r.spans), "counters": dict(r.counters),
-                     "enqueue_s": spanned["enqueue_s"], "frames": span_frames}}
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    out = {"spans": {"host": host_table(r.spans), "counters": dict(r.counters),
+                     "enqueue_s": spanned["enqueue_s"], "frames": calls * drv.frames_per_window}}
     harness._sync(device)
-    with tracing() as r2, profile(activities=acts) as prof:
+    with tracing() as r2, profile(activities=harness.profiler_activities(device)) as prof:
         harness.window_loop(drv, readback, spanned["w_next"], count=calls, keep=False, mark=True)
         harness._sync(device)
     events = prof.events()
     names = {sp.name for sp in r2.spans}
+    out["span_trace"] = span_trace(events, names)
+    return out, events, names
+
+
+def run_spans(cfg, mix, seed, seconds, device) -> dict:
+    """One run of a cell through the measured window, `span_windows` and
+    the on-cost loop; returns its record."""
+    from benchmark import harness
+
+    device = torch.device(device)
+    _, drv, readback, w, _ = harness.set_up(cfg, mix, harness.seeds(seed), device,
+                                            time.perf_counter())
+    rec = harness.window_loop(drv, readback, w, until=time.perf_counter() + seconds, keep=False)
+    frames = rec["calls"] * drv.frames_per_window
+    calls = LEAD_IN + mix["trace_calls"]
+    got, events, names = span_windows(drv, readback, rec["w_next"], calls, device)
+    run = {"cfg": cfg, "mix": mix, "frames": frames, "window_s": rec["t_end"] - rec["t_start"],
+           "enqueue_s": rec["enqueue_s"], "trace_frames": calls * drv.frames_per_window, **got}
     run["trace"] = trace_mod.reduce(events)
-    run["span_trace"] = span_trace(events, names)
     run["owners"] = owners_of(events, names, [n for n, _ in run["trace"]["device_ops"]])
-    del prof, events
+    del events
     # the on-cost again, within one window: traced and untraced calls in turn
+    from lsfa_tpu_torch.utils.profiler import tracing
+
     alt = _Alternating(drv, tracing)
     harness.window_loop(alt, readback, 0, count=10 * mix["trace_calls"], keep=False)
     pairs = [on / off for off, on in zip(alt.enqueue_s[False], alt.enqueue_s[True])]
@@ -392,7 +405,7 @@ def run_spans(cfg, mix, seed, seconds, device) -> dict:
     t = run["trace"]
     run["idle_s"] = t["window_s"] - t["busy_s"]
     run["enqueue_ms"] = rec["enqueue_s"] / frames * 1e3
-    run["span_enqueue_ms"] = spanned["enqueue_s"] / span_frames * 1e3
+    run["span_enqueue_ms"] = run["spans"]["enqueue_s"] / run["spans"]["frames"] * 1e3
     run["on_cost_pct"] = 100.0 * (run["span_enqueue_ms"] / run["enqueue_ms"] - 1.0)
     return run
 

@@ -1,11 +1,13 @@
 """BENCHMARK.json against the contract's shape, and every name in it
 resolving to its own files."""
 
+import inspect
 import json
 import re
 
 import pytest
 
+from benchmark import entries, kinds
 from benchmark.harness import ROOT, load_json, metric_reader
 
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -30,7 +32,16 @@ def test_cell_resolves(cell):
     cfg = load_json("benchmark", "configs", f"{cell['config']}.json")
     mix = load_json("benchmark", "traffic", f"{cell['traffic']}.json")
     checks = load_json("benchmark", "checks", f"{cell['name']}.json")
-    assert cfg["model"] in ("lsfa", "rfcn") and mix["entry"] in ("process_gops", "detect")
+    assert (ROOT / "benchmark" / "kinds" / f"{cfg['model']}.py").is_file()
+    kind = kinds.find(cfg["model"])
+    for fn, args in (("program", ["cfg", "device"]), ("reference", ["cfg", "prec", "device"]),
+                     ("flops_per_frame", ["net", "cfg"])):
+        assert list(inspect.signature(getattr(kind, fn)).parameters) == args
+    assert (ROOT / "benchmark" / "entries" / f"{mix['entry']}.py").is_file()
+    driver = entries.driver(mix["entry"])
+    assert all(callable(getattr(driver, fn)) for fn in (
+        "build", "stage", "call", "keep", "release", "sample", "program_frames",
+        "reference_frames"))
     assert checks["limits"] and all(v > 0 for v in checks["limits"].values())
     e2e = [m for m in BENCH["end_to_end"] if cell["name"] in m.get("workloads", [cell["name"]])]
     assert {m["name"] for m in e2e} > {"setup_s"}
@@ -38,11 +49,19 @@ def test_cell_resolves(cell):
     assert per
 
 
+# configurations run as their sources publish them
+UNCUT = ("lsfa_r101", "rfcn_r101")
+
+
 @pytest.mark.parametrize("cfg", BENCH["configs"], ids=lambda c: c["name"])
 def test_config_file(cfg):
     data = load_json(cfg["file"])
     assert cfg["file"].startswith("benchmark/configs/")
-    assert data["source"] == cfg["source"] and data["reduced"] == cfg["reduced"] == []
+    assert data["source"] == cfg["source"] and data["reduced"] == cfg["reduced"]
+    assert len(cfg["reduced"]) <= 16 and all(NAME.match(k) for k in cfg["reduced"])
+    assert all(k in data and not k.lower().endswith(("_dim", "_rank")) for k in cfg["reduced"])
+    if cfg["name"] in UNCUT:
+        assert cfg["reduced"] == []
     assert data["assumed"] and data["flops_per_frame"] > 0
     assert any(c["config"] == cfg["name"] for c in BENCH["workloads"])
 

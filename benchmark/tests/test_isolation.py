@@ -53,14 +53,22 @@ def _loaded(code):
 
 
 def test_reference_loads_neither_jax_nor_the_program():
+    """Each configuration's kind file builds its reference (on meta tensors)
+    without loading the program."""
     roots = _loaded("import benchmark.reference.model, benchmark.reference.detect, "
-                    "benchmark.judge, benchmark.weights, benchmark.count_flops")
+                    "benchmark.judge, benchmark.weights, benchmark.count_flops\n"
+                    "from benchmark import kinds\nfrom benchmark.harness import load_json\n"
+                    "for c in load_json('BENCHMARK.json')['configs']:\n"
+                    "    cfg = load_json(c['file'])\n"
+                    "    kinds.find(cfg['model']).reference(cfg, "
+                    "benchmark.reference.model.Precision(), 'meta')")
     assert not roots & (set(FORBIDDEN) | {PROGRAM})
 
 
 def test_harness_loads_no_jax():
-    roots = _loaded("import benchmark.run, benchmark.harness, benchmark.drivers, "
-                    "benchmark.control; import lsfa_tpu_torch.eval.tester, "
+    roots = _loaded("import benchmark.run, benchmark.harness, benchmark.entries.process_gops, "
+                    "benchmark.entries.detect, benchmark.control; "
+                    "import lsfa_tpu_torch.eval.tester, "
                     "lsfa_tpu_torch.eval.rfcn_tester, lsfa_tpu_torch.models.lsfa")
     assert PROGRAM in roots and not roots & set(FORBIDDEN)
 

@@ -6,13 +6,14 @@ on hand-made run dicts (nothing from a program without spans), and one
 run of each tiny cell on the CPU."""
 
 import json
+import time
 from types import SimpleNamespace
 
 import pytest
 import torch
 
 from benchmark import spans
-from benchmark.harness import ROOT
+from benchmark.harness import ROOT, run_cell
 from benchmark.trace import MARK, reduce
 
 CPU, CUDA = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
@@ -131,15 +132,15 @@ def test_metrics_of_a_program_without_spans_are_none():
     assert all(f(empty) is None for f in spans.METRICS.values())
 
 
-@pytest.mark.parametrize("config,mix", [("tiny_lsfa", "tiny_lanes"), ("tiny_rfcn", "tiny_frames")])
-def test_tiny_cell_on_the_cpu(config, mix):
+@pytest.mark.parametrize("config,mix,root", [("tiny_lsfa", "tiny_lanes", "stream.process_gops"),
+                                             ("tiny_rfcn", "tiny_frames", "rfcn.detect")])
+def test_tiny_cell_on_the_cpu(config, mix, root):
     torch.set_num_threads(4)
     cfg = json.loads((DATA / f"{config}.json").read_text())
     m = json.loads((DATA / f"{mix}.json").read_text())
     run = spans.run_spans(cfg, m, 2**33 + 5, 0.5, "cpu")
     host, counters = run["spans"]["host"], run["spans"]["counters"]
     calls = 2 + m["trace_calls"]
-    root = "stream.process_gops" if m["entry"] == "process_gops" else "rfcn.detect"
     assert host[root]["calls"] == calls and host["detect"]["calls"] > 0
     assert counters["detect.frames"] == run["trace_frames"]
     assert spans.model_host_ms_per_frame(run) > 0 and spans.detect_host_ms_per_frame(run) > 0
@@ -148,3 +149,20 @@ def test_tiny_cell_on_the_cpu(config, mix):
     idle = run["span_trace"]["idle"]
     assert sum(idle.values()) == pytest.approx(run["idle_s"], rel=1e-9)
     assert idle and set(idle) <= set(host) | {spans.HARNESS}
+
+
+@pytest.mark.parametrize("config,mix", [("tiny_lsfa", "tiny_lanes"), ("tiny_rfcn", "tiny_frames")])
+def test_traced_run_reads_the_span_metrics(config, mix):
+    """A traced run keeps its profiled window, then runs the span windows,
+    whose readers read the host spans (no device time on the CPU)."""
+    torch.set_num_threads(4)
+    cfg = json.loads((DATA / f"{config}.json").read_text())
+    m = json.loads((DATA / f"{mix}.json").read_text())
+    checks = json.loads((DATA / "tiny_checks.json").read_text())
+    names = [(n, "ms") for n in spans.METRICS] + [("kernels_per_frame", "kernels")]
+    r = run_cell(cfg, m, checks, names, 2**33 + 7, 1.5, True, "cpu", time.perf_counter())
+    assert r["correct"], r["checks"]
+    got = {k: v["value"] for k, v in r["metrics"].items()}
+    assert set(got) == {"model_host_ms_per_frame", "detect_host_ms_per_frame"}
+    assert all(v > 0 for v in got.values())
+    assert r["device"]["window_s"] > 0 and list(r)[-1] == "checks"

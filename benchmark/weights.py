@@ -1,9 +1,11 @@
 """Seeded weights of a benchmark configuration, made on the device.
 
-The parameter set is the reference network's (``benchmark.reference``),
-whose names equal the program's: one state dict loads into both. Every
-convolution is drawn from a normal of standard deviation
-gain / sqrt(fan_in), the gain taken from the configuration's
+The parameter set is that of the configuration's reference network (its
+kind's ``reference``, ``benchmark/kinds/``), whose names equal the
+program's: one state dict loads into both. The rules below are keyed on
+``reference/model.py``'s block types, so a network built from them needs
+no rule of its own. Every convolution is drawn from a normal of standard
+deviation gain / sqrt(fan_in), the gain taken from the configuration's
 ``weights.gains`` (the first pattern that matches the name) or its
 ``weights.default_gain``; all normals come from one draw of one
 ``torch.Generator`` on the device. Biases are 0, the scale map's 1;
@@ -19,6 +21,7 @@ import re
 
 import torch
 
+from benchmark import kinds
 from benchmark.reference import model as ref
 
 
@@ -55,10 +58,10 @@ def _specs(net: torch.nn.Module, recipe: dict):
     return specs
 
 
-def make_state_dict(kind: str, cfg: dict, seed: int, device) -> dict:
-    """The state dict of configuration `cfg` (kind "lsfa" or "rfcn") from
-    `seed`, float32 on `device`."""
-    net = ref.build(kind, cfg, device="meta")
+def make_state_dict(cfg: dict, seed: int, device) -> dict:
+    """The state dict of configuration `cfg` from `seed`, float32 on
+    `device`."""
+    net = kinds.find(cfg["model"]).reference(cfg, ref.Precision(), "meta")
     specs = _specs(net, cfg["weights"])
     normals = [(n, s) for n, s in specs.items() if s[1] is not None]
     total = sum(math.prod(s[0]) for _, s in normals)
