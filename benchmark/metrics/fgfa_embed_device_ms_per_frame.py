@@ -1,0 +1,8 @@
+"""Device ms of the kernels launched inside the ``model.fgfa.embed`` spans in a
+traced run's profiled span window, over its frames (FGFA)."""
+
+from benchmark import spans
+
+
+def read(run: dict):
+    return spans._device(run, ("model.fgfa.embed",))

@@ -293,13 +293,35 @@ Phases, each printing one line before the last:
      the plain chain's (`library_ms`). The kernels line counts its launches
      over the paths `bn_record` checks or records (``bn.fused``): 113 a GOP
      on the streaming path (phase 4) and the lanes (phase 37), 102 a frame
-     on R-FCN serving (phase 8), none plain; phase 40's own calls in none.
+     on R-FCN serving (phase 8), 102 a call on FGFA's paths (phase 41),
+     none plain; phase 40's own calls in none. Then BN_FGFA_SHAPES, the
+     same checks and timings at B = 96 (bn_data, bn_conv1 at 304x512 and
+     the widest maps of stages 1, 3 and 4: FGFA's trunk over a ring8
+     call's 96 new frames at once), each compared 8 images at a time.
+ 41. FGFA (models/fgfa.py, eval/fgfa_tester.py), after phase 39: the
+     kernel against the plain version at the ring8 cell's two shapes
+     (FGFA_CALLS: (96, 2048) at t = 0.7 and (2880, 300) at t = 0.3; masks,
+     converged flags, one kernel a call, per-call times); the full-width
+     FGFA ResNet-101 (RFCN_CONFIG with K = 10) through
+     FGFADetector(batch=8).process_frames over 12 new frames a lane a call:
+     the first call after the reset (its first K rows invalid), two calls,
+     a restart (first=True), then flush(): 2 kernel launches a call and 2
+     for the flush, 102 fused FrozenBN calls a call and none plain, the
+     counters (every frame given aggregated once over 2K pairs and through
+     the trunk once), shapes, finite detections, no host sync after the
+     first call, ms a call, peak memory; then eval_videos_fgfa over phase
+     13's three synthetic videos (102 records: 2 launches a call but the
+     first, whose rows all lie before the reset, and 2 for the flush; 102
+     fused FrozenBN calls a call). Its launches and FrozenBN calls are the
+     kernels line's `fgfa_stream` and `fgfa_eval` paths, the kernel's
+     timed entries among its shapes.
 `python3 chip_smoke.py --ladder STEPS --out DIR` runs phase 34 alone with
 a real step budget (`long_ladder`); `python3 chip_smoke.py --tools` runs
 phase 36 alone (`tools_only`); `python3 chip_smoke.py --lanes` runs phase
 3 at the lane shapes, phase 37 and phase 39 (`lanes_only`); `python3
 chip_smoke.py --tp` runs phase 38 alone (`tp_only`); `python3 chip_smoke.py
---bn` runs phase 40 alone (`bn_only`).
+--bn` runs phase 40 alone (`bn_only`); `python3 chip_smoke.py --fgfa` runs
+phase 41 alone (`fgfa_only`).
 Then the script's seconds, one JSON line for the kernels and, last, the
 result line. Any failed phase exits non-zero before the result line is
 printed.
@@ -526,6 +548,20 @@ def lane_kernel_cases(rng):
             for b in (4, 8, 2) for what, k, n, t, share in LANE_CALLS]
 
 
+# FGFA's two calls of the kernel in one call of the ring8 cell's detector (8
+# lanes, 12 centres a lane, detected in one batch): (what, batch, N, thresh,
+# the share of valid candidates drawn)
+FGFA_CALLS = (("RPN", 96, 2048, 0.7, 0.95), ("per-class", 2880, 300, 0.3, 0.8))
+
+
+def fgfa_kernel_cases(rng):
+    """`kernel_cases` entries at FGFA_CALLS."""
+    return [(f"FGFA B=8 T=12 {what} ({bsz}, {n})",
+             np.stack([sorted_boxes(rng, n) for _ in range(bsz)]),
+             rng.uniform(size=(bsz, n)) < share, t, 31, True)
+            for what, bsz, n, t, share in FGFA_CALLS]
+
+
 NOT_TRACED = "device time not measured: torch.profiler recorded no device event in 3 windows"
 
 
@@ -696,6 +732,12 @@ def kernel_phase(dev, cases, nms_cuda, greedy_alive):
 # scale and ReLU)
 BN_SHAPES = ((1, 256, 152, 256, True), (8, 256, 152, 256, True), (1, 1024, 38, 64, True),
              (8, 1024, 38, 64, True), (1, 3, 608, 1024, False), (8, 3, 608, 1024, False))
+# FGFA's trunk runs over the 96 new frames of a ring8 call at once: bn_data,
+# bn_conv1 (64 channels at 304x512) and the widest maps of stages 1, 3 and 4
+# at B = 96, up to 956M elements a map
+BN_FGFA_SHAPES = ((96, 3, 608, 1024, False), (96, 64, 304, 512, True),
+                  (96, 256, 152, 256, True), (96, 1024, 38, 64, True),
+                  (96, 2048, 38, 64, True))
 BN_COLD_BYTES = 4 * 50 * 2 ** 20      # 4x the H100's L2: the timed calls read from memory
 BN_HOST_CALLS = 50
 
@@ -745,9 +787,20 @@ def bn_compare(x, got, want, mean, var, weight, bias, eps, relu):
             float(((got.double() - exact).abs() / to_exact).max()))
 
 
+def bn_compare_rows(x, got, want, *args, rows=8):
+    """`bn_compare` over `rows` images at a time (its float64 copies of a
+    B = 96 map would take tens of GB): the share of bit-equal elements
+    weighted by size, the largest of each ratio."""
+    n = x.shape[0]
+    parts = [(min(rows, n - i), bn_compare(x[i:i + rows], got[i:i + rows], want[i:i + rows], *args))
+             for i in range(0, n, rows)]
+    return (sum(k * p[0] for k, p in parts) / n, max(p[1] for _, p in parts),
+            max(p[2] for _, p in parts))
+
+
 def bn_phase(dev):
     """Phase 40: the frozen-BatchNorm kernel (ops/bn_cuda.py) at BN_SHAPES
-    against the plain chain (upcast, F.batch_norm, cast, ReLU: what
+    and BN_FGFA_SHAPES against the plain chain (upcast, F.batch_norm, cast, ReLU: what
     FrozenBN ran on the card before it, `library_ms`): outputs within
     `bn_compare`'s tolerances, one kernel per call and the plain chain's
     kernels (CUDA graphs); per call
@@ -770,7 +823,7 @@ def bn_phase(dev):
           f"{time.perf_counter() - t0:.2f} s (build or load of a cached build)")
     g = torch.Generator(device=dev).manual_seed(40)
     shapes = []
-    for b, c, h, w, relu in BN_SHAPES:
+    for b, c, h, w, relu in BN_SHAPES + BN_FGFA_SHAPES:
         mean = torch.randn(c, generator=g, device=dev)
         var = 0.25 + 2.0 * torch.rand(c, generator=g, device=dev)
         scale = 0.5 + torch.rand(c, generator=g, device=dev) if relu else None
@@ -787,7 +840,7 @@ def bn_phase(dev):
 
         got, want = fused(xs[0]), plain(xs[0])
         torch.cuda.synchronize()
-        share, worst, off_exact = bn_compare(xs[0], got, want, *params, relu)
+        share, worst, off_exact = bn_compare_rows(xs[0], got, want, *params, relu)
         check(max(worst, off_exact) <= 1.0,
               f"frozen_bn {(b, c, h, w)}: kernel off the plain chain by {worst:.3f} of the "
               f"tolerance, off float64 by {off_exact:.3f}")
@@ -833,7 +886,8 @@ def bn_phase(dev):
               f"{dev_text}; host {host_us['kernel']:.2f} us a call, library "
               f"{host_us['plain']:.2f} us")
         del xs
-    top = max((e for e in shapes if e["relu"]), key=lambda e: e["bound_us"])
+    # the headline: the largest of the streaming paths' shapes, as before FGFA's
+    top = max((e for e in shapes[:len(BN_SHAPES)] if e["relu"]), key=lambda e: e["bound_us"])
     return {"name": "frozen_bn", "route": "cuda", "source": "lsfa_tpu_torch/csrc/frozen_bn.cu",
             "replaces": None, "ms": top["us"] / 1e3, "plain_ms": None,
             "library_ms": top["library_us"] / 1e3, "bound_ms": top["bound_us"] / 1e3,
@@ -3935,6 +3989,11 @@ def main():
     max_err = max(max_err, ranks_err)
     print(f"phases 1-39: {time.perf_counter() - T0:.1f} s since the script started")
 
+    # 41: FGFA, its kernel shapes, the ring's detector and the loop over videos
+    fgfa_launches, fgfa_err, fgfa_shapes = fgfa_phase(dev, nms_cuda, greedy_alive)
+    max_err = max(max_err, fgfa_err)
+    print(f"phases 1-41: {time.perf_counter() - T0:.1f} s since the script started")
+
     # 27. launches and device time by torch.profiler, last: after a profiled
     # window the host's launches stay slower, which would bias phases 3-26
     rfcn_account(dev)
@@ -3963,6 +4022,7 @@ def main():
         print(line)
     tools_launches.update(tools_profiled(dev, nms_cuda, n6000, input6000))
     shapes.append(n6000)
+    shapes.extend(fgfa_shapes)
     lanes_profiled(dev, lane_runs)
 
     rpn = next(s for s in shapes if s["shape"] == [12, 2048])
@@ -3979,7 +4039,8 @@ def main():
                      + overfit_launches + bn_ar_launches + sum(bf16_launches.values())
                      + jpeg_launches + sum(ladder_launches.values()) + entry_launches
                      + sum(tools_launches.values()) + sum(lanes_launches.values())
-                     + sum(tensor_launches.values()) + sum(ranks_launches.values())),
+                     + sum(tensor_launches.values()) + sum(ranks_launches.values())
+                     + sum(fgfa_launches.values())),
         "max_abs_err": max_err,
         "ms": rpn["us"] / 1e3, "plain_ms": rpn["plain_us"] / 1e3,
         "bound_ms": rpn["bound_us"] / 1e3, "bound_by": rpn["bound_by"], "library_ms": None,
@@ -3992,7 +4053,7 @@ def main():
                              "overfit_smoke": overfit_launches, "bn_allreduce": bn_ar_launches,
                              **bf16_launches, "jpeg_eval": jpeg_launches, **ladder_launches,
                              "entry": entry_launches, **tools_launches, **lanes_launches,
-                             **tensor_launches, **ranks_launches},
+                             **tensor_launches, **ranks_launches, **fgfa_launches},
         "shapes": shapes},
         {**frozen_bn, "launches": sum(v["fused"] for v in BN_BY_PATH.values()),
          "launches_by_path": BN_BY_PATH}]}))
@@ -4791,6 +4852,137 @@ def lanes_ranks_phase(dev, model, cfg, nms_cuda, greedy_alive):
     return launches, max_err
 
 
+FGFA_OVERRIDES = {"symbol": "fgfa_resnet101", "TEST": {"KEY_FRAME_INTERVAL": 10}}
+FGFA_LANES, FGFA_T = 8, 12            # the ring8 cell's lanes and new frames a lane a call
+
+
+def fgfa_phase(dev, nms_cuda, greedy_alive):
+    """Phase 41: FGFA on the card. Returns (kernel launches by path, the
+    largest abs error of the kernel's masks against the plain version's,
+    the kernel's timed entries at FGFA's shapes)."""
+    import torch
+
+    from lsfa_tpu_torch.config import load_config
+    from lsfa_tpu_torch.eval.driver import eval_videos_fgfa
+    from lsfa_tpu_torch.eval.fgfa_tester import FGFADetector
+    from lsfa_tpu_torch.models.fgfa import fgfa_from_config
+    from lsfa_tpu_torch.models.lsfa import init_params
+
+    max_err, shapes, _ = kernel_phase(dev, fgfa_kernel_cases(np.random.default_rng(41)),
+                                      nms_cuda, greedy_alive)
+    cfg = load_config(str(RFCN_CONFIG), overrides=FGFA_OVERRIDES)
+    model = fgfa_from_config(cfg, device=dev)
+    init_params(model, torch.Generator(device=dev).manual_seed(0))
+    k, b, t = model.window_k, FGFA_LANES, FGFA_T
+    check(k == 10, f"FGFA's window half-width {k}, not the source's 10")
+    det = FGFADetector(model, cfg, BUCKET, batch=b)
+    gen = torch.Generator(device=dev).manual_seed(41)
+    info = torch.tensor([[CONTENT[0], CONTENT[1], 600 / 576]] * b, device=dev)
+    # after the reset, two calls, a restart, the flush (None)
+    plan = [True, False, False, True, None]
+    counters = ("model.frames.fgfa", "fgfa.pairs", "fgfa.trunk_frames")
+    torch.cuda.synchronize()
+    reset_nms_launches()
+    bn_start = bn_calls()
+    c0 = [REC.counters.get(n, 0) for n in counters]
+    wall, enqueue, counts, outs, syncs = [], [], [], [], 0
+    for i, first in enumerate(plan):
+        if first is not None:
+            x = torch.zeros((t, b) + BUCKET + (3,), dtype=torch.uint8, device=dev)
+            x[:, :, :CONTENT[0], :CONTENT[1]] = torch.randint(
+                0, 256, (t, b) + CONTENT + (3,), generator=gen, device=dev, dtype=torch.uint8)
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            out = det.flush() if first is None else det.process_frames(x, info, first=first)
+            torch.cuda.set_sync_debug_mode("default")
+        enqueue.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+        counts.append(nms_launches())
+        if i > 0:   # the first call initializes cuDNN/cuBLAS (and warns once of the mode)
+            syncs += sum("synchroniz" in str(w.message) for w in caught)
+        outs.append(out)
+    stream_launches = nms_launches()
+    calls = len(plan) - 1
+    check(counts == [2 * (i + 1) for i in range(len(plan))],
+          f"FGFA: kernel launches after each call {counts}, not 2 a call and 2 for the flush")
+    bn_record("fgfa_stream", bn_start, fused=TRUNK_BNS * calls)
+    got = [REC.counters.get(n, 0) - c for n, c in zip(counters, c0)]
+    # every frame given is aggregated once, over 2K pairs, and through the trunk once
+    check(got == [calls * t * b, 2 * k * calls * t * b, calls * t * b],
+          f"FGFA: {dict(zip(counters, got))} over {calls} calls of {t} x {b} frames")
+    check(syncs == 0, f"FGFA: {syncs} host syncs flagged after the first call")
+    for i, (dets, valid) in enumerate(outs):
+        rows = k if plan[i] is None else t
+        check(tuple(dets.shape) == (rows, b, 300, 6) and tuple(valid.shape) == (rows, b, 300),
+              f"FGFA call {i}: detection shapes {tuple(dets.shape)}, {tuple(valid.shape)}")
+        check(bool(torch.isfinite(dets).all()), f"FGFA call {i}: non-finite detections")
+        lost = k if i == 0 else 0           # the first call's first K rows: before the reset
+        check(not valid[:lost].any() and bool(valid[lost:].flatten(1).any(1).all()),
+              f"FGFA call {i}: valid rows {valid.any(-1).tolist()}")
+    steady = statistics.mean(wall[1:3])
+    print(f"FGFA: ResNet-101 bf16 at {BUCKET[0]}x{BUCKET[1]}, K = {k}, FGFADetector(batch={b}) "
+          f"over {calls} calls of {t} frames a lane (after the reset, two, a restart) and the "
+          f"flush; per-call wall ms {[round(w * 1e3, 1) for w in wall]} (first includes "
+          f"warm-up); calls 2-3 {steady * 1e3:.1f} ms = {t * b / steady:.1f} frames/s, host "
+          f"enqueue {statistics.mean(enqueue[1:3]) * 1e3:.1f} ms a call; nms kernel launches "
+          f"{stream_launches} (2 a call); FrozenBN calls {BN_BY_PATH['fgfa_stream']}; counters "
+          f"{dict(zip(counters, got))}; host syncs flagged after the first call {syncs}; peak "
+          f"memory {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+    del det, outs, x
+    torch.cuda.empty_cache()
+
+    # the loop over videos, one lane, K frames a call
+    roidb, open_video = eval_records(EVAL_LENGTHS)
+    log = Lines()
+    torch.cuda.synchronize()
+    reset_nms_launches()
+    bn_start = bn_calls()
+    t0 = time.perf_counter()
+    dets = eval_videos_fgfa(model, cfg, roidb, logger=log, open_video=open_video)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    eval_launches = nms_launches()
+    n = sum(EVAL_LENGTHS.values())
+    check_detections("eval_videos_fgfa", dets, n)
+    # the first call's rows all lie before the reset; every later call and
+    # the flush detect once
+    calls = sum(-(-length // k) for length in EVAL_LENGTHS.values())
+    check(eval_launches == 2 * calls,
+          f"eval_videos_fgfa: {eval_launches} kernel launches, not 2 x {calls}")
+    bn_record("fgfa_eval", bn_start, fused=TRUNK_BNS * calls)
+    print(f"eval_videos_fgfa: {len(roidb)} synthetic videos of {list(EVAL_LENGTHS.values())} "
+          f"frames: {n} records in {seconds:.2f} s (first pass, cuDNN's B = 1 plans included); "
+          f"nms kernel launches {eval_launches} ({calls} calls, the first before any row, and "
+          f"the flush); FrozenBN calls {BN_BY_PATH['fgfa_eval']}; {log.lines[-1]}")
+    del model
+    torch.cuda.empty_cache()
+    return {"fgfa_stream": stream_launches, "fgfa_eval": eval_launches}, max_err, shapes
+
+
+def fgfa_only():
+    """`python3 chip_smoke.py --fgfa`: phase 41 alone, after the build;
+    prints its launches, FrozenBN calls and the kernel's timed entries as
+    one JSON line."""
+    import torch
+
+    from lsfa_tpu_torch.ops import nms_cuda
+    from lsfa_tpu_torch.ops.nms import greedy_alive
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs an NVIDIA card")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    nms_cuda.build()
+    launches, err, shapes = fgfa_phase(torch.device("cuda", 0), nms_cuda, greedy_alive)
+    print(json.dumps({"launches_by_path": launches, "max_abs_err": err,
+                      "frozen_bn_by_path": BN_BY_PATH, "shapes": shapes,
+                      "seconds": time.perf_counter() - T0}))
+
+
 def long_ladder(argv):
     """The ladder's two card rungs with a real step budget, outside the
     smoke run: phase 34 at the given sizes, its reports, curves and
@@ -4847,6 +5039,8 @@ if __name__ == "__main__":
             tp_only()
         elif sys.argv[1:] == ["--bn"]:
             bn_only()
+        elif sys.argv[1:] == ["--fgfa"]:
+            fgfa_only()
         elif len(sys.argv) > 1:
             long_ladder(sys.argv[1:])
         else:

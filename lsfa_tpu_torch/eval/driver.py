@@ -9,7 +9,8 @@ decoding thread per stream; `eval_videos_lanes` runs several streams in
 lockstep as the lanes of one detector, one frame of every lane per step
 (``eval/multistream.py``), optionally split over the ranks of a process
 group; `eval_videos_rfcn` runs the single-frame R-FCN baseline over every
-frame. All return a detections mapping
+frame; `eval_videos_fgfa` runs FGFA over every frame, each detected on its
+window of 2K + 1 frames, K frames late. All return a detections mapping
 {global frame index -> `collect_detections` dict}, the frames numbered
 across the video roidb in its order, which `evaluate_map` scores.
 
@@ -38,6 +39,7 @@ import queue
 import threading
 
 import numpy as np
+import torch
 
 from lsfa_tpu_torch.data import coviar
 from lsfa_tpu_torch.data.dataset import ImageNetVID
@@ -45,6 +47,7 @@ from lsfa_tpu_torch.data.image import pick_bucket
 from lsfa_tpu_torch.data.loader import (
     GOP_SIZE, EvalLoader, PreparedVideo, prepared_available, read_jpeg_bgr)
 from lsfa_tpu_torch.data.prefetch import DevicePrefetcher
+from lsfa_tpu_torch.eval.fgfa_tester import FGFADetector
 from lsfa_tpu_torch.eval.multistream import eval_videos_multistream
 from lsfa_tpu_torch.eval.rfcn_tester import RFCNDetector
 from lsfa_tpu_torch.eval.tester import StreamingDetector, collect_detections
@@ -495,6 +498,74 @@ def eval_videos_rfcn(model, cfg, video_roidb, det_cache: str | None = None, logg
                 frame_counter += 1
                 if max_frames is not None and frame_counter >= max_frames:
                     break
+    log(timer.summary())
+    save_det_cache(det_cache, detections)
+    return detections
+
+
+def eval_videos_fgfa(model, cfg, video_roidb, det_cache: str | None = None, logger=None,
+                     max_frames: int | None = None, open_video=None, read_image=None):
+    """FGFA over every frame of the videos, one lane: each video's frames
+    go to ``FGFADetector.process_frames`` K at a time, a video's first
+    chunk with `first`, which emits the previous video's last K frames;
+    each bucket's last video is flushed. model: an FGFA module with its
+    weights. Returns the mapping `eval_videos` returns."""
+    log = logger.info if logger else print
+    cached = load_det_cache(det_cache, log)
+    if cached is not None:
+        return cached
+    base, _ = frame_bases(video_roidb)
+    timer = PhaseTimer()
+    detections = {}
+    frame_counter = 0
+    for bucket, recs in group_videos_by_bucket(video_roidb, cfg, read_image).items():
+        if max_frames is not None and frame_counter >= max_frames:
+            break
+        log(f"bucket {bucket}: {len(recs)} videos (fgfa, K = {model.window_k})")
+        det = FGFADetector(model, cfg, bucket)
+        keys, buf = [], []       # the global index of every frame given; the chunk
+
+        def file(out, first_row):
+            """Read a call's rows back: row r holds keys[first_row + r], and a
+            negative index a row from before the detector's first frame."""
+            with timer.phase("post"):
+                dets, valid = (o.cpu() for o in out)
+                for r in range(dets.shape[0]):
+                    if first_row + r >= 0:
+                        detections[keys[first_row + r]] = collect_detections(dets[r], valid[r])
+
+        def push(first):
+            with timer.phase("net"):
+                out = det.process_frames(torch.stack([d for d, _, _ in buf]), buf[0][2],
+                                         first=first)
+            first_row = len(keys) - det.k
+            keys.extend(key for _, key, _ in buf)
+            file(out, first_row)
+            buf.clear()
+
+        loader = EvalLoader(recs, cfg, bucket_hw=bucket, full_frames=True, open_video=open_video,
+                            read_image=read_image)
+        cur, first = None, False
+        with DevicePrefetcher(loader, det.device, depth=2) as items:
+            for item in items:
+                if item["video_index"] != cur:
+                    if buf:
+                        push(first)
+                    cur, first = item["video_index"], True
+                rec = recs[item["video_index"]]
+                buf.append((item["data"].reshape((1,) + tuple(item["data"].shape[-3:])),
+                            base[id(rec)] + item["frame_id"], item["im_info"].reshape(1, 3)))
+                if len(buf) == det.k:
+                    push(first)
+                    first = False
+                timer.tick()
+                frame_counter += 1
+                if max_frames is not None and frame_counter >= max_frames:
+                    break
+        if buf:
+            push(first)
+        first_row = len(keys) - det.k
+        file(det.flush(), first_row)
     log(timer.summary())
     save_det_cache(det_cache, detections)
     return detections

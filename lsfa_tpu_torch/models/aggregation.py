@@ -98,10 +98,14 @@ class NqNet(nn.Module):
 
 class FgfaEmbed(nn.Module):
     """FGFA aggregation: a shared embedding tower (1x1/512, 3x3/512,
-    1x1/2048, MSRA init) over (fresh, warped); per pixel the cosine
-    similarity of each embedding to the fresh one (l2 norms with 1e-10
-    inside the sqrt), a float32 softmax over the two, and the weighted sum
-    of (warped, fresh)."""
+    1x1/2048, MSRA init) over N features of each frame, the first the
+    frame's own; per pixel the cosine similarity of each embedding to the
+    own one (l2 norms with 1e-10 inside the sqrt), a float32 softmax over
+    the N, and the weighted sum of the N features. `forward` is the
+    two-way case (warped, fresh) of LSFA's key step; `aggregate` takes any
+    N, laid out slot-major (slot j of frame b is row j*B + b, as
+    ``torch.cat`` of the slots gives), and `embed` and `weigh` are its two
+    halves."""
 
     def __init__(self, feat_dim: int = 1024, dtype=torch.float32, device=None):
         super().__init__()
@@ -111,22 +115,36 @@ class FgfaEmbed(nn.Module):
         self.em_conv2 = Conv(512, 512, 3, **kw)
         self.em_conv3 = Conv(512, 2048, 1, **kw)
 
-    def forward(self, warp_feat, conv_feat):
-        b = warp_feat.shape[0]
-        both = torch.cat([conv_feat.to(self.dtype), warp_feat.to(self.dtype)], dim=0)
-        e = torch.relu(self.em_conv1(both))
+    def embed(self, feats):
+        """(M, C, H, W) features -> their (M, 2048, H, W) embeddings in the
+        compute dtype."""
+        e = torch.relu(self.em_conv1(feats.to(self.dtype)))
         e = torch.relu(self.em_conv2(e))
-        e = self.em_conv3(e).float()
-        e_cur, e_warp = e[:b], e[b:]
+        return self.em_conv3(e)
 
+    @staticmethod
+    def weigh(emb, feats, n: int):
+        """Slot-major embeddings (N*B, E, H, W) and features (N*B, C, H, W),
+        slot 0 each frame's own -> the (B, C, H, W) float32 weighted sum."""
         def l2n(v):
             return v / torch.sqrt((v * v).sum(dim=1, keepdim=True) + 1e-10)
 
-        n_cur = l2n(e_cur)
-        w_warp = (l2n(e_warp) * n_cur).sum(dim=1, keepdim=True)
-        w_cur = (n_cur * n_cur).sum(dim=1, keepdim=True)
-        wgt = torch.softmax(torch.stack([w_warp, w_cur], dim=0), dim=0)
-        return wgt[0] * warp_feat + wgt[1] * conv_feat
+        e = l2n(emb.float()).unflatten(0, (n, -1))
+        cos = (e * e[0]).sum(dim=2, keepdim=True)          # (N, B, 1, H, W)
+        wgt = torch.softmax(cos, dim=0)
+        f = feats.unflatten(0, (n, -1))
+        out = wgt[0] * f[0]
+        for j in range(1, n):
+            out = out + wgt[j] * f[j]
+        return out
+
+    def aggregate(self, feats, n: int):
+        """N features of each of B frames, slot-major (N*B, C, H, W) with
+        slot 0 the frame's own -> their (B, C, H, W) float32 aggregate."""
+        return self.weigh(self.embed(feats), feats, n)
+
+    def forward(self, warp_feat, conv_feat):
+        return self.aggregate(torch.cat([conv_feat, warp_feat], dim=0), 2)
 
 
 FUSE_TYPES = ("add", "addv2", "concat", "concatv1", "concatv2")

@@ -3,7 +3,8 @@
 2x2 average-pooled, six leaky-ReLU(0.1) conv stages, the FlowNet-S
 refinement down to 1/16 of the image, and (flow * 2.5, scale_map) where
 the 1x1 scale-map conv starts as weight 0, bias 1. Flow channels are
-(dx, dy).
+(dx, dy). Built with ``scale_map=False`` (FGFA's FlowNet, which warps
+unscaled) it has no scale-map conv and returns (flow * 2.5, None).
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ _TRUNK = [("conv1", 64, 7, 2), ("conv2", 128, 5, 2), ("conv3", 256, 5, 2),
 
 
 class FlowNetS(nn.Module):
-    def __init__(self, feat_dim: int = 1024, dtype=torch.float32, device=None):
+    def __init__(self, feat_dim: int = 1024, dtype=torch.float32, device=None,
+                 scale_map: bool = True):
         super().__init__()
         self.dtype = dtype
         kw = dict(dtype=dtype, device=device)
@@ -39,7 +41,7 @@ class FlowNetS(nn.Module):
             if lvl > 2:
                 self.add_module(f"flow{lvl}", Conv(cat, 2, 3, **kw))
         self.flow_final = Conv(cat, 2, 3, **kw)
-        self.scale_map = Conv(cat, feat_dim, 1, init="scale_map", **kw)
+        self.scale_map = Conv(cat, feat_dim, 1, init="scale_map", **kw) if scale_map else None
 
     def forward(self, img_cur, img_ref):
         d = self.dtype
@@ -66,4 +68,4 @@ class FlowNetS(nn.Module):
                 flow = getattr(self, f"flow{lvl}")(cat)
         cat = avg_pool(cat, 2)                               # 1/16 of the image
         flow = self.flow_final(cat).float() * 2.5
-        return flow, self.scale_map(cat)
+        return flow, None if self.scale_map is None else self.scale_map(cat)
